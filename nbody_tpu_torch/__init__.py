@@ -1,0 +1,33 @@
+"""nbody_tpu_torch — the PyTorch / CUDA port of nbody_tpu, for NVIDIA Hopper.
+
+The brute-force tier end to end: struct-of-arrays ``System`` state in 2D/3D,
+softened Newtonian gravity, the plain torch oracle and two hand-written
+CUDA kernels (``ops/cuda_brute.py``), Euler and leapfrog stepping, the
+``Simulation`` API with npz checkpoints, and the benchmark harness and CLI.
+The JAX package ``nbody_tpu`` is the reference each part is held against.
+"""
+
+from .config import (
+    DEFAULT_GRAVITY,
+    DEFAULT_TREE,
+    GravityConfig,
+    TreeConfig,
+)
+from .state import System, plummer_system, random_system, system_from_numpy
+from .integrators import euler_step, leapfrog_step, simulate
+from .ops.brute_force import (
+    brute_force_accelerations,
+    brute_force_blocked,
+    brute_force_direct,
+    kinetic_energy,
+    potential_energy,
+)
+from .simulation import Simulation, available_methods
+from .utils.accuracy import (
+    accuracy_percentage,
+    max_relative_error,
+    percentile_relative_error,
+    scale_normalized_error,
+)
+
+__version__ = "0.1.0"
