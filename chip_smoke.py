@@ -3,13 +3,22 @@
 
     python3 chip_smoke.py
 
-Builds the two brute-force CUDA kernels from ``nbody_tpu_torch/csrc``,
-holds each against its plain PyTorch version on the card, drives the
-port's main path (``Simulation(method="brute")`` and the benchmark CLI at
-N = 2^20), checks that the path went through the kernels, and times them.
-Every check raises on failure, so any failed phase exits non-zero. The last
-line is one JSON object naming the device; the line before it lists the
-kernels with their launches, errors and times.
+Builds the brute-force CUDA kernels K1-K5 from ``nbody_tpu_torch/csrc``,
+holds each against its plain PyTorch version on the card, and drives the
+port's paths through the public entry points, each with the launch counts
+set to 0 just before it and read just after:
+
+* the main path, ``Simulation(method="brute")`` and the benchmark CLI at
+  N = 2^20 (K2, K1);
+* the segmented driver at N = 2,000,000 2D (K1 on the diagonal, K3 across);
+* fused small-N stepping at N = 1000 2D (K4);
+* the matmul-form tile with Morton sorting at N = 262,144 2D (K5).
+
+Then it times every kernel against its plain version. Every check raises on
+failure, so any failed phase exits non-zero. The last line is one JSON
+object naming the device; the line before it is the card's name and power
+limit, and the one before that lists the kernels with their launches,
+errors and times.
 
 Needs one CUDA device; exits non-zero without one. Imports no JAX.
 """
@@ -35,6 +44,31 @@ HEADLINE_N = 1 << 20
 SIM_N = 262_144
 TIMED_N = 262_144
 SEED = 0
+# The segmented driver at the size of the reference's 2e6 GPU row
+# (bench/registry.py:106-108), and a ragged odd-segment 3D case.
+SEG_N = 2_000_000
+SEG_N3 = 300_001
+# K3 against its plain version: (targets, sources, dim, softening 0?).
+SYM_TILE_PAIRS = [(100, 200, 2, False), (130, 170, 3, False),
+                  (4099, 5000, 3, True), (3000, 1_000_003, 2, False)]
+# K4: the reference's small-N row (1000,BruteForce_CUDA,2, BASELINE.md:20)
+# and the largest N the kernel takes; per-step time by differencing runs of
+# K_LO and K_HI steps (tools/smalln_floor.py:106-116).
+SMALL_N = 1000
+FUSED_N = 2048
+FUSED_STEPS = 64
+K_LO, K_HI = 256, 4096
+# K5: the JAX package's mxu test sizes and bounds (tests/test_pallas_brute.py
+# :109, :131): (N, sort, block_t, tol), at its block_t = 64 and once at the
+# default 256.
+MXU_SETS = [(256, False, 64, 5e-3), (512, False, 64, 3e-4),
+            (512, True, 64, 3e-4), (512, True, 256, 3e-4)]
+# K5 on its path at TIMED_N, sorted, default blocks, on sampled rows: each
+# body's error in fp32 ulps of the form's cancellation scale (see
+# mxu_error_ulps). Per term the kernel rounds once in the product and up to
+# kChain - 1 = 31 times in its fp32 chain, with rsqrtf's 2 ulp besides.
+MXU_ULPS = 64
+SAMPLED_ROWS = 2048
 
 
 def nvidia_smi_line() -> str:
@@ -57,6 +91,19 @@ def check_close(name, got, want, tol=FORCE_TOL) -> float:
     if not (finite and err < tol):
         raise AssertionError(f"{name}: err {err} (tol {tol}), finite {finite}")
     return max_abs
+
+
+def reset_launches(cb) -> None:
+    for k in cb.LAUNCHES:
+        cb.LAUNCHES[k] = 0
+
+
+def expect_launches(what, launches, want) -> None:
+    """Raise unless the counts of ``want``'s kernels are exactly ``want``."""
+    have = {k: launches[k] for k in want}
+    print(f"    {what} launches: {have}")
+    if have != want:
+        raise AssertionError(f"{what}: launches {have} != {want}")
 
 
 def time_ms(fn, reps: int = 3) -> float:
@@ -85,6 +132,315 @@ def coincident_set(n, gen, dev):
     return pos.to(dev, torch.float32), torch.ones(n, device=dev)
 
 
+def oracle64(cb, pos, mass, cfg, rows=None):
+    """f64 one-sided plain forces (optionally on sampled rows)."""
+    pos64, m64 = pos.double(), mass.double()
+    tgt = pos64 if rows is None else pos64[rows]
+    tm = m64 if rows is None else m64[rows]
+    return (cfg.G * tm)[:, None] * cb.pairwise_accel_plain(
+        tgt, pos64, m64, cfg.softening)
+
+
+def fp32_floor(want, ulps: int = 4) -> float:
+    """Scale-normalized error of ``ulps`` fp32 ulps on the largest body's
+    own force. One pair's term carries about that much in fp32 (rsqrtf's
+    2 ulp, the u·u·u and mass products), so no fp32 sum can read less
+    where one body's force is hundreds of times the RMS. That happens on
+    the source side of a thin rectangle: each of 1,000,003 sources sees
+    only 3000 targets, and the nearest of them decides its force."""
+    f = want.norm(dim=-1)
+    return ulps * 2.0 ** -24 * float(f.max() / f.pow(2).mean().sqrt())
+
+
+def seeded(phase: int) -> torch.Generator:
+    return torch.Generator().manual_seed(SEED + phase)
+
+
+def sample_rows(n, gen, dev):
+    return torch.randperm(n, generator=gen)[:SAMPLED_ROWS].to(dev)
+
+
+def phase_sym_tile(cb, gen, dev, default) -> dict:
+    """[8] K3 against its plain version; the segmented driver, counted."""
+    from nbody_tpu_torch.state import random_system
+    print("[8] K3 sym tile vs f64 plain version (both outputs)")
+    errs = []
+    for t, s, dim, coincident in SYM_TILE_PAIRS:
+        if coincident:
+            p, m = coincident_set(t + s, gen, dev)
+            # Rows 0 and 1 coincide: row 1 is a target, row 0 a source.
+            tp, tm = p[1:t + 1], m[1:t + 1]
+            sp = torch.cat([p[:1], p[t + 1:]])
+            sm = torch.cat([m[:1], m[t + 1:]])
+            soft, label = 0.0, f"{t}x{s} {dim}D softening=0 coincident"
+        else:
+            bodies = random_system(t + s, dim, generator=gen, device=dev)
+            tp, sp = bodies.positions[:t], bodies.positions[t:]
+            tm, sm = bodies.masses[:t], bodies.masses[t:]
+            soft, label = default.softening, f"{t}x{s} {dim}D"
+        got = cb.sym_tile_cuda(tp, tm, sp, sm, soft)
+        want = cb.sym_tile_plain(tp.double(), tm.double(), sp.double(),
+                                 sm.double(), soft)
+        for side, g, w in zip(("acc_t", "part_s"), got, want):
+            errs.append(check_close(f"{label} {side}", g, w,
+                                    tol=max(FORCE_TOL, fp32_floor(w))))
+    bodies = random_system(300, 3, generator=gen, device=dev)
+    p, m = bodies.positions, bodies.masses
+    got = cb.sym_tile_cuda(p[:100], m[:100], p[100:], m[100:],
+                           default.softening, chunk=64)
+    want = cb.sym_tile_plain(p[:100].double(), m[:100].double(),
+                             p[100:].double(), m[100:].double(),
+                             default.softening)
+    for side, g, w in zip(("acc_t", "part_s"), got, want):
+        check_close(f"100x200 3D chunk=64 (2 x 4 launches) {side}", g, w)
+
+    print(f"    brute_force_cuda_segmented, N={SEG_N} 2D, default segments")
+    big = random_system(SEG_N, 2, generator=gen, device=dev)
+    reset_launches(cb)
+    got = cb.brute_force_cuda_segmented(big.positions, big.masses, default)
+    torch.cuda.synchronize()
+    launches = dict(cb.LAUNCHES)
+    expect_launches(f"segmented N={SEG_N} 2D", launches,
+                    {"symmetric": 2, "sym_tile": 1})
+    rows = sample_rows(SEG_N, gen, dev)
+    seg_err = check_close(
+        f"segmented N={SEG_N} 2D, {SAMPLED_ROWS} sampled rows vs one-sided "
+        "f64 sum", got[rows], oracle64(cb, big.positions, big.masses,
+                                       default, rows))
+    del got, big
+    print(f"    brute_force_cuda_segmented, N={SEG_N3} 3D, num_segments=3")
+    b3 = random_system(SEG_N3, 3, generator=gen, device=dev)
+    reset_launches(cb)
+    got = cb.brute_force_cuda_segmented(b3.positions, b3.masses, default,
+                                        num_segments=3)
+    expect_launches(f"segmented N={SEG_N3} 3D", cb.LAUNCHES,
+                    {"symmetric": 3, "sym_tile": 3})
+    rows = sample_rows(SEG_N3, gen, dev)
+    check_close(f"segmented N={SEG_N3} 3D, {SAMPLED_ROWS} sampled rows",
+                got[rows], oracle64(cb, b3.positions, b3.masses, default,
+                                    rows))
+    return {"launches": launches["sym_tile"], "max_abs_err": max(errs),
+            "segmented_max_abs_err": seg_err}
+
+
+def check_states(label, have, want, v_tol=FORCE_TOL, x_tol=1e-5) -> float:
+    """Velocities within ``v_tol`` scale-normalized, positions within
+    ``x_tol`` of the largest coordinate; returns the velocities' max abs
+    error."""
+    (x, v), (x_ref, v_ref) = have, want
+    err = check_close(f"{label} velocities", v, v_ref.double(), tol=v_tol)
+    x_err = float((x - x_ref).abs().max() / x_ref.abs().max())
+    print(f"  {label} positions: max abs diff / max |x| = {x_err:.3e} "
+          f"(tol {x_tol:g})")
+    if not x_err < x_tol:
+        raise AssertionError(f"{label}: positions differ by {x_err}")
+    return err
+
+
+def phase_fused(cb, gen, dev) -> dict:
+    """[9] K4 against its plain version on the card, counted."""
+    from nbody_tpu_torch import GravityConfig
+    from nbody_tpu_torch.state import plummer_system, random_system
+    unit = GravityConfig(G=1.0, softening=0.1)
+    kw = {"g": unit.G, "softening": unit.softening, "dt": 1e-3,
+          "num_steps": FUSED_STEPS}
+    # Both sides run the same fp32 operations per step and differ only in
+    # the order of each force sum (~1e-6 of the RMS force). 64 steps of
+    # dt 1e-3 (t = 0.064, far below the crossing time of these clusters)
+    # add those differences up without amplifying them, so velocities stay
+    # well inside FORCE_TOL and positions, which move by ~1e-2, inside
+    # 1e-5 of the largest coordinate.
+    print(f"[9] K4 fused small-N stepping vs its plain version on the card, "
+          f"G=1, softening=0.1, dt=1e-3, {FUSED_STEPS} steps")
+    small = plummer_system(SMALL_N, 2, generator=gen, device=dev)
+    state = (small.positions, small.velocities, small.masses)
+    reset_launches(cb)
+    have = cb.fused_smalln_simulate(*state, integrator="leapfrog", **kw)
+    torch.cuda.synchronize()
+    launches = dict(cb.LAUNCHES)
+    expect_launches(f"fused_smalln_simulate N={SMALL_N} 2D", launches,
+                    {"fused_steps": 1})
+    check_states(f"N={SMALL_N} 2D leapfrog", have,
+                 cb.fused_smalln_plain(*state, integrator="leapfrog", **kw))
+    big = plummer_system(FUSED_N, 3, generator=gen, device=dev)
+    state = (big.positions, big.velocities, big.masses)
+    errs = [check_states(f"N={FUSED_N} 3D {integ}",
+                         cb.fused_smalln_simulate(*state, integrator=integ,
+                                                  **kw),
+                         cb.fused_smalln_plain(*state, integrator=integ,
+                                               **kw))
+            for integ in ("euler", "leapfrog")]
+    # Reference units, as tests/test_pallas_brute.py:216-223: nothing moves
+    # at fp32 resolution, so both sides must agree to the last bit.
+    ref = random_system(300, 2, generator=gen, device=dev)
+    cfg = GravityConfig()
+    for integ in ("euler", "leapfrog"):
+        args = ((ref.positions, ref.velocities, ref.masses),
+                {"dt": 1e-6, "num_steps": 8, "g": cfg.G,
+                 "softening": cfg.softening, "integrator": integ})
+        got = cb.fused_smalln_simulate(*args[0], **args[1])
+        want = cb.fused_smalln_plain(*args[0], **args[1])
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        print(f"  N=300 2D reference units {integ}: identical {same}")
+        if not same:
+            raise AssertionError(f"reference-units {integ} states differ")
+    return {"launches": launches["fused_steps"], "max_abs_err": max(errs)}
+
+
+def phase_mxu(cb, gen, dev, default) -> dict:
+    """[10] K5 against the f64 sum and its plain version, counted."""
+    from nbody_tpu_torch.ops.keys import morton_key
+    from nbody_tpu_torch.state import random_system
+    print("[10] K5 mxu tile vs f64 one-sided sum and vs its plain version "
+          "on the same blocks (fp32, TF32 off)")
+    errs = []
+    for n, sort, block_t, tol in MXU_SETS:
+        bodies = random_system(n, 3, generator=gen, device=dev)
+        p, m = bodies.positions, bodies.masses
+        label = f"N={n} 3D sort={sort} block_t={block_t}"
+        got = cb.brute_force_cuda(p, m, default, mode="mxu", sort=sort,
+                                  block_t=block_t)
+        errs.append(check_close(label, got, oracle64(cb, p, m, default),
+                                tol=tol))
+        if sort:
+            order = torch.argsort(morton_key(p), stable=True)
+            p, m = p[order], m[order]
+        # The plain version in f64 on the same blocks: in fp32 it carries
+        # the form's own cancellation error, several times the kernel's,
+        # whose sums and correction run in fp64.
+        check_close(f"{label} kernel vs mxu_accel_plain (f64, same blocks)",
+                    cb.pairwise_accel_cuda(p, p, m, default.softening,
+                                           mode="mxu", block_t=block_t),
+                    cb.mxu_accel_plain(p.double(), p.double(), m.double(),
+                                       default.softening, block_t), tol=tol)
+    bodies = random_system(TIMED_N, 2, generator=gen, device=dev)
+    p, m = bodies.positions, bodies.masses
+    reset_launches(cb)
+    got = cb.brute_force_cuda(p, m, default, mode="mxu", sort=True)
+    torch.cuda.synchronize()
+    launches = dict(cb.LAUNCHES)
+    expect_launches(f"brute_force_cuda(mode='mxu', sort=True) N={TIMED_N} "
+                    "2D", launches, {"mxu": 1})
+    rows = sample_rows(TIMED_N, gen, dev)
+    ulps = mxu_error_ulps(cb, p, m, default, rows, got)
+    print(f"  N={TIMED_N} 2D sorted, {SAMPLED_ROWS} sampled rows: max error "
+          f"{ulps:.2f} fp32 ulps of the cancellation scale (tol {MXU_ULPS}),"
+          f" finite {bool(torch.isfinite(got).all())}")
+    if not (bool(torch.isfinite(got).all()) and ulps < MXU_ULPS):
+        raise AssertionError(f"K5 at N={TIMED_N}: {ulps} ulps")
+    return {"launches": launches["mxu"], "max_abs_err": max(errs)}
+
+
+def mxu_error_ulps(cb, pos, mass, cfg, rows, got, block_t=256) -> float:
+    """K5's largest error on ``rows``, in fp32 ulps of each body's
+    cancellation scale, against the f64 one-sided sum.
+
+    The form returns a[:D] - (x_t - c)·a[D], a[D] = Σ_s m_s·u³: both terms
+    are of size |x_t - c|·a[D] and cancel down to the acceleration, so fp32
+    rounds at that scale and not at the force's (pallas_brute.py:283-289).
+    How far they cancel depends on the draw: the scale-normalized error of
+    the same run read 1.7e-3 and 5.0e-3 on two draws of this shape (my
+    chip runs), where the f32 plain version reads ~1e-1 unsorted. The scale
+    is the larger of |x_t - c|·a[D] and |a|; the bodies are in the
+    wrapper's Morton order and c is the first of each block of
+    ``block_t``."""
+    from nbody_tpu_torch.ops.brute_force import _diffs_d2, _guarded_u3
+    from nbody_tpu_torch.ops.keys import morton_key
+    from nbody_tpu_torch.utils.accuracy import scale_normalized_error
+    order = torch.argsort(morton_key(pos), stable=True)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(order.numel(), device=order.device)
+    c = pos[order[rank[rows] // block_t * block_t]].double()
+    tgt, p64, m64 = pos[rows].double(), pos.double(), mass.double()
+    want = cb.pairwise_accel_plain(tgt, p64, m64, cfg.softening, guard=True)
+    a_d = torch.cat([
+        (_guarded_u3(_diffs_d2(tgt[r:r + 256], p64)[1], cfg.softening)
+         * m64).sum(dim=1) for r in range(0, tgt.shape[0], 256)])
+    scale = torch.maximum((tgt - c).norm(dim=1) * a_d, want.norm(dim=1))
+    have = got[rows].double() / (cfg.G * m64[rows])[:, None]
+    print(f"  (scale-normalized err {float(scale_normalized_error(have, want)):.3e}"
+          ", not held: it depends on how far the draw cancels)")
+    return float(((have - want).norm(dim=1) / scale).max()) / 2.0 ** -24
+
+
+def per_step_ms(run) -> float:
+    """Per-step time from runs of K_LO and K_HI steps (launch and set-up
+    cancel in the difference)."""
+    lo, hi = time_ms(lambda: run(K_LO)), time_ms(lambda: run(K_HI))
+    return (hi - lo) / (K_HI - K_LO)
+
+
+def phase_times(cb, gen, dev, default, smi) -> dict:
+    """[7] CUDA-event times of every kernel beside its plain version."""
+    from nbody_tpu_torch import GravityConfig
+    from nbody_tpu_torch.integrators import simulate
+    from nbody_tpu_torch.state import plummer_system, random_system
+    print(f"[7] times (CUDA events, 1 warm-up, median of 3), {smi}")
+    head = random_system(HEADLINE_N, 2, generator=gen, device=dev)
+    big = {mode: time_ms(lambda: cb.brute_force_cuda(
+        head.positions, head.masses, default, mode=mode))
+        for mode in ("symmetric", "precise")}
+    print(f"    N={HEADLINE_N} 2D fp32: K1 symmetric {big['symmetric']:.3f} ms,"
+          f" K2 precise {big['precise']:.3f} ms")
+    del head
+    # The plain versions take minutes at 2^20, so every kernel is also
+    # timed at TIMED_N, where the plain ones finish in seconds.
+    small = random_system(TIMED_N, 2, generator=gen, device=dev)
+    p, mm = small.positions, small.masses
+    soft = default.softening
+    pair = random_system(2 * TIMED_N, 2, generator=gen, device=dev)
+    tp, sp = pair.positions[:TIMED_N], pair.positions[TIMED_N:]
+    tm, sm = pair.masses[:TIMED_N], pair.masses[TIMED_N:]
+    t = {
+        "K1": time_ms(lambda: cb.brute_force_cuda(p, mm, default,
+                                                  mode="symmetric")),
+        "K1_plain": time_ms(lambda: cb.symmetric_forces_plain(p, mm, default)),
+        "K2": time_ms(lambda: cb.brute_force_cuda(p, mm, default,
+                                                  mode="precise")),
+        "K2_plain": time_ms(lambda: (default.G * mm)[:, None]
+                            * cb.pairwise_accel_plain(p, p, mm, soft)),
+        "K3": time_ms(lambda: cb.sym_tile_cuda(tp, tm, sp, sm, soft)),
+        "K3_plain": time_ms(lambda: cb.sym_tile_plain(tp, tm, sp, sm, soft)),
+        "K5": time_ms(lambda: cb.brute_force_cuda(p, mm, default,
+                                                  mode="mxu")),
+        "K5_plain": time_ms(lambda: (default.G * mm)[:, None]
+                            * cb.mxu_accel_plain(p, p, mm, soft, 256)),
+    }
+    print(f"    N={TIMED_N} 2D fp32 (K3: {TIMED_N} x {TIMED_N} cross tile): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in t.items()))
+    del small, pair
+
+    seg = random_system(SEG_N, 2, generator=gen, device=dev)
+    t["segmented_2e6"] = time_ms(lambda: cb.brute_force_cuda_segmented(
+        seg.positions, seg.masses, default))
+    t["K1_2e6"] = time_ms(lambda: cb.brute_force_cuda(
+        seg.positions, seg.masses, default, mode="symmetric"))
+    print(f"    N={SEG_N} 2D fp32: segmented (2 segments: 2 K1 + 1 K3) "
+          f"{t['segmented_2e6']:.3f} ms, one K1 launch {t['K1_2e6']:.3f} ms")
+    del seg
+
+    unit = GravityConfig(G=1.0, softening=0.1)
+    for n, dim in ((SMALL_N, 2), (FUSED_N, 3)):
+        s = plummer_system(n, dim, generator=gen, device=dev)
+        state = (s.positions, s.velocities, s.masses)
+        kw = {"g": unit.G, "softening": unit.softening, "dt": 1e-3,
+              "integrator": "euler"}
+        forces = lambda q, m: cb.brute_force_cuda(  # noqa: E731
+            q, m, unit, mode="precise")
+        key = f"{n}_{dim}d"
+        t[f"K4_{key}"] = per_step_ms(lambda k: cb.fused_smalln_simulate(
+            *state, num_steps=k, **kw))
+        t[f"K4_plain_{key}"] = per_step_ms(lambda k: cb.fused_smalln_plain(
+            *state, num_steps=k, **kw))
+        t[f"stepped_{key}"] = per_step_ms(lambda k: simulate(
+            s, forces, 1e-3, k, integrator="euler"))
+        print(f"    N={n} {dim}D Euler, ms per step (K={K_LO}..{K_HI}): K4 "
+              f"{t[f'K4_{key}']:.5f}, plain {t[f'K4_plain_{key}']:.5f}, "
+              f"stepped path (simulate + K2) {t[f'stepped_{key}']:.5f}")
+    t["big"] = big
+    return t
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -98,6 +454,9 @@ def main() -> int:
     from nbody_tpu_torch.ops.brute_force import brute_force_blocked
     from nbody_tpu_torch.state import plummer_system, random_system
     from nbody_tpu_torch.utils import cuda_build
+
+    # K5's plain version is a matmul: it must run in full fp32.
+    torch.backends.cuda.matmul.allow_tf32 = False
 
     # 1. Device.
     smi = nvidia_smi_line()
@@ -130,26 +489,18 @@ def main() -> int:
             ("N=100003 2D ragged", s2.positions, s2.masses, default),
             ("N=4099 3D softening=0 coincident", p3, m3, unit0)]
 
-    def oracle64(pos, mass, cfg, rows=None):
-        """f64 one-sided plain forces (optionally on sampled rows)."""
-        pos64, m64 = pos.double(), mass.double()
-        tgt = pos64 if rows is None else pos64[rows]
-        tm = m64 if rows is None else m64[rows]
-        return (cfg.G * tm)[:, None] * cb.pairwise_accel_plain(
-            tgt, pos64, m64, cfg.softening)
-
     # 3. K2 against its plain version.
     print("[3] K2 precise kernel vs f64 plain version")
     for label, pos, mass, cfg in sets:
         got = cb.brute_force_cuda(pos, mass, cfg, mode="precise")
-        check_close(label, got, oracle64(pos, mass, cfg))
+        check_close(label, got, oracle64(cb, pos, mass, cfg))
     plum = plummer_system(SIM_N, 3, generator=gen, device=dev)
     unit = GravityConfig(G=1.0, softening=0.1)
     rows = torch.randperm(SIM_N, generator=gen)[:4096].to(dev)
     got = cb.brute_force_cuda(plum.positions, plum.masses, unit,
                               mode="precise")
     k2_err = check_close(f"main-path shape N={SIM_N} 3D Plummer, 4096 rows",
-                         got[rows], oracle64(plum.positions, plum.masses,
+                         got[rows], oracle64(cb, plum.positions, plum.masses,
                                              unit, rows))
 
     # 4. K1 against its plain version.
@@ -172,13 +523,12 @@ def main() -> int:
                               mode="symmetric")
     k1_err = check_close(f"headline N={HEADLINE_N} 2D, 2048 sampled rows vs "
                          "one-sided f64 sum over all sources",
-                         got[rows], oracle64(head.positions, head.masses,
+                         got[rows], oracle64(cb, head.positions, head.masses,
                                              default, rows))
     del got, head
 
     # 5-6. The main path, counted.
-    for k in cb.LAUNCHES:
-        cb.LAUNCHES[k] = 0
+    reset_launches(cb)
     print(f"[5] Simulation(method='brute').run(steps=3, dt=1e-3), "
           f"N={SIM_N} 3D Plummer, G=1, softening=0.1")
     t0 = time.perf_counter()
@@ -197,13 +547,9 @@ def main() -> int:
     # velocities are sums of them, so they are held to the same bound.
     # Positions move by ~1e-6 of their size in 3 steps and must agree to
     # 1e-5 of the largest coordinate.
-    check_close("velocities vs plain blocked path on the card",
-                sim.system.velocities, ref.velocities.double())
-    pos_err = float((sim.system.positions - ref.positions).abs().max()
-                    / ref.positions.abs().max())
-    print(f"  positions: max abs diff / max |x| = {pos_err:.3e} (tol 1e-5)")
-    if not pos_err < 1e-5:
-        raise AssertionError(f"positions differ: {pos_err}")
+    check_states("3 steps vs plain blocked path on the card",
+                 (sim.system.positions, sim.system.velocities),
+                 (ref.positions, ref.velocities))
     with tempfile.TemporaryDirectory() as tmp:
         sim.save(tmp)
         back = Simulation.load(tmp, unit, device=dev)
@@ -231,49 +577,53 @@ def main() -> int:
         raise AssertionError(f"CLI accuracy run: rc {rc}, match {m}")
     launches = dict(cb.LAUNCHES)
     print(f"    main-path launches: {launches}")
-    if min(launches.values()) == 0:
+    if min(launches["precise"], launches["symmetric"]) == 0:
         raise AssertionError(f"a kernel of the path never ran: {launches}")
 
-    # 7. Times.
-    print(f"[7] times (CUDA events, 1 warm-up, median of 3), {smi}")
-    head = random_system(HEADLINE_N, 2, generator=gen, device=dev)
-    big = {mode: time_ms(lambda: cb.brute_force_cuda(
-        head.positions, head.masses, default, mode=mode))
-        for mode in ("symmetric", "precise")}
-    print(f"    N={HEADLINE_N} 2D fp32: K1 symmetric {big['symmetric']:.3f} ms,"
-          f" K2 precise {big['precise']:.3f} ms")
-    del head
-    # The plain versions take minutes at 2^20, so all three are also timed
-    # at TIMED_N, where the plain ones finish in seconds.
-    small = random_system(TIMED_N, 2, generator=gen, device=dev)
-    p, mm = small.positions, small.masses
-    t = {
-        "K1": time_ms(lambda: cb.brute_force_cuda(p, mm, default,
-                                                  mode="symmetric")),
-        "K1_plain": time_ms(lambda: cb.symmetric_forces_plain(p, mm, default)),
-        "K2": time_ms(lambda: cb.brute_force_cuda(p, mm, default,
-                                                  mode="precise")),
-        "K2_plain": time_ms(lambda: (default.G * mm)[:, None]
-                            * cb.pairwise_accel_plain(p, p, mm,
-                                                      default.softening)),
-    }
-    print(f"    N={TIMED_N} 2D fp32: " + ", ".join(
-        f"{k} {v:.3f} ms" for k, v in t.items()))
+    # Each later phase draws from its own seed, independent of the above.
+    t = phase_times(cb, seeded(7), dev, default, smi)
+    k3 = phase_sym_tile(cb, seeded(8), dev, default)
+    k4 = phase_fused(cb, seeded(9), dev)
+    k5 = phase_mxu(cb, seeded(10), dev, default)
 
     timed_at = f"N={TIMED_N} 2D fp32"
+    big = t["big"]
     kernels = [
         {"name": "K1 symmetric (Newton-3 block pairs)", "route": "cuda",
          "source": "nbody_tpu_torch/csrc/symmetric.cu",
          "replaces": "nbody_tpu/ops/pallas_brute.py:135",
          "launches": launches["symmetric"], "max_abs_err": k1_err,
          "ms": t["K1"], "plain_ms": t["K1_plain"], "timed_at": timed_at,
-         "ms_n1048576_2d": big["symmetric"]},
+         "ms_n1048576_2d": big["symmetric"], "ms_n2e6_2d": t["K1_2e6"]},
         {"name": "K2 precise (one-sided tile)", "route": "cuda",
          "source": "nbody_tpu_torch/csrc/precise.cu",
          "replaces": "nbody_tpu/ops/pallas_brute.py:78",
          "launches": launches["precise"], "max_abs_err": k2_err,
          "ms": t["K2"], "plain_ms": t["K2_plain"], "timed_at": timed_at,
          "ms_n1048576_2d": big["precise"]},
+        {"name": "K3 sym tile (Newton-3 rectangle, segmented driver)",
+         "route": "cuda", "source": "nbody_tpu_torch/csrc/sym_tile.cu",
+         "replaces": "nbody_tpu/ops/pallas_brute.py:497",
+         "launches": k3["launches"], "max_abs_err": k3["max_abs_err"],
+         "ms": t["K3"], "plain_ms": t["K3_plain"],
+         "timed_at": f"{TIMED_N} x {TIMED_N} 2D fp32 cross tile",
+         "segmented_ms_n2e6_2d": t["segmented_2e6"]},
+        {"name": "K4 fused small-N steps", "route": "cuda",
+         "source": "nbody_tpu_torch/csrc/fused_steps.cu",
+         "replaces": "nbody_tpu/ops/pallas_brute.py:849",
+         "launches": k4["launches"], "max_abs_err": k4["max_abs_err"],
+         "ms": t[f"K4_{SMALL_N}_2d"], "plain_ms": t[f"K4_plain_{SMALL_N}_2d"],
+         "timed_at": f"per Euler step, N={SMALL_N} 2D fp32",
+         "stepped_ms": t[f"stepped_{SMALL_N}_2d"],
+         "ms_n2048_3d": t[f"K4_{FUSED_N}_3d"],
+         "plain_ms_n2048_3d": t[f"K4_plain_{FUSED_N}_3d"],
+         "stepped_ms_n2048_3d": t[f"stepped_{FUSED_N}_3d"]},
+        {"name": "K5 mxu (block-centred matmul-form tile)", "route": "cuda",
+         "source": "nbody_tpu_torch/csrc/mxu.cu",
+         "replaces": "nbody_tpu/ops/pallas_brute.py:264",
+         "launches": k5["launches"], "max_abs_err": k5["max_abs_err"],
+         "ms": t["K5"], "plain_ms": t["K5_plain"], "timed_at": timed_at,
+         "k2_ms": t["K2"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,9 +1,10 @@
 """nbody_tpu_torch — the PyTorch / CUDA port of nbody_tpu, for NVIDIA Hopper.
 
 The brute-force tier end to end: struct-of-arrays ``System`` state in 2D/3D,
-softened Newtonian gravity, the plain torch oracle and two hand-written
-CUDA kernels (``ops/cuda_brute.py``), Euler and leapfrog stepping, the
-``Simulation`` API with npz checkpoints, and the benchmark harness and CLI.
+softened Newtonian gravity, the plain torch oracle and five hand-written
+CUDA kernels (``ops/cuda_brute.py``), space-filling-curve keys
+(``ops/keys.py``), Euler and leapfrog stepping, the ``Simulation`` API with
+npz checkpoints, and the benchmark harness and CLI.
 The JAX package ``nbody_tpu`` is the reference each part is held against.
 """
 

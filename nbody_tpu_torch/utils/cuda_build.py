@@ -1,10 +1,12 @@
 """Build and load the port's CUDA kernels (``nbody_tpu_torch/csrc``).
 
-The kernels have a plain C interface and are compiled by ``nvcc`` into one
-shared library, loaded with ``ctypes``. The build happens at first use,
-from the sources in the package only, into ``nbody_tpu_torch/_build/``. The
-library's file name carries a hash of the sources and the flags, so an edit
-to either builds a new library and a stale one is never loaded.
+The kernels have a plain C interface. ``nvcc`` compiles each ``csrc/*.cu``
+into an object file, all sources at once in parallel processes, and links
+the objects into one shared library, loaded with ``ctypes``. The build
+happens at first use, from the sources in the package only, into
+``nbody_tpu_torch/_build/``. The library's file name carries a hash of the
+sources and the flags, so an edit to either builds a new library and a
+stale one is never loaded.
 
 Importing this module builds nothing; :func:`load_library` does, once per
 process.
@@ -28,7 +30,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # per-kernel registers / spills into the build log
 )
 
@@ -40,6 +42,13 @@ _SIGNATURES = {
     "nbody_symmetric_forces": ((_c_void_p, _c_void_p, _c_int, _c_int,
                                 _c_float, _c_int, _c_void_p), _c_int),
     "nbody_symmetric_block": ((), _c_int),
+    "nbody_sym_tile": ((_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int,
+                        _c_int, _c_int, _c_float, _c_int, _c_void_p), _c_int),
+    "nbody_fused_steps": ((_c_void_p, _c_void_p, _c_int, _c_int, _c_int,
+                           _c_float, _c_float, _c_float, _c_int, _c_int,
+                           _c_void_p), _c_int),
+    "nbody_mxu_accel": ((_c_void_p, _c_void_p, _c_void_p, _c_int, _c_int,
+                         _c_int, _c_int, _c_float, _c_void_p), _c_int),
     "nbody_error_string": ((_c_int,), ctypes.c_char_p),
 }
 
@@ -69,23 +78,38 @@ def library_path() -> Path:
 
 
 def build(lib: Path) -> None:
-    """Compile every ``csrc/*.cu`` into ``lib``; the ptxas report goes to
-    ``lib`` with suffix ``.log``."""
+    """Compile every ``csrc/*.cu`` (one ``nvcc`` each, all started together)
+    and link them into ``lib``; the ptxas reports go to ``lib`` with suffix
+    ``.log``."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                              capture_output=True, text=True)
-        lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-        os.replace(tmp, lib)  # atomic: a concurrent loader never sees half
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in (p for p in sources() if p.suffix == ".cu"):
+            obj = os.path.join(tmp, src.stem + ".o")
+            procs.append((src.name, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log, failed = [], []
+        for name, _, proc in procs:
+            out, _ = proc.communicate()
+            log.append(f"== {name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(f"{name} ({proc.returncode}):\n{out[-4000:]}")
+        so = os.path.join(tmp, lib.name)
+        if not failed:
+            link = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-shared", "-o", so,
+                 *(obj for _, obj, _ in procs)],
+                capture_output=True, text=True)
+            log.append(f"== link\n{link.stdout}{link.stderr}")
+            if link.returncode != 0:
+                failed.append(f"link ({link.returncode}):\n"
+                              f"{link.stderr[-4000:]}")
+        lib.with_suffix(".log").write_text("".join(log))
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        os.replace(so, lib)  # atomic: a concurrent loader never sees half
 
 
 @functools.cache

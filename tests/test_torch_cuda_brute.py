@@ -142,10 +142,8 @@ def test_bad_and_unported_modes():
     tp, tm = torch.zeros((4, 3)), torch.ones(4)
     with pytest.raises(ValueError, match="mode must be"):
         cb.brute_force_cuda(tp, tm, mode="fast")
-    with pytest.raises(NotImplementedError, match="K5"):
-        cb.brute_force_cuda(tp, tm, mode="mxu")
-    with pytest.raises(NotImplementedError, match="keys.py"):
-        cb.brute_force_cuda(tp, tm, sort=True)
+    with pytest.raises(ValueError, match="mode must be"):
+        cb.pairwise_accel_cuda(tp, tp, tm, mode="symmetric")
     with pytest.raises(ValueError, match="devices"):
         cb.pairwise_accel_cuda(tp, tp.to("meta"), tm)
 
