@@ -4,7 +4,10 @@ The brute-force tier end to end: struct-of-arrays ``System`` state in 2D/3D,
 softened Newtonian gravity, the plain torch oracle and five hand-written
 CUDA kernels (``ops/cuda_brute.py``), space-filling-curve keys
 (``ops/keys.py``), Euler and leapfrog stepping, the ``Simulation`` API with
-npz checkpoints, and the benchmark harness and CLI.
+npz checkpoints, and the benchmark harness and CLI. The Barnes-Hut grid
+tier (``ops/grid_tree.py`` with ``ops/hier_far.py`` and
+``ops/local_expansion.py``) runs its leaf near field on a sixth kernel
+(``ops/cuda_p2p.py``); ``tools/microbench.py`` probes the card's rates.
 The JAX package ``nbody_tpu`` is the reference each part is held against.
 """
 
@@ -23,6 +26,7 @@ from .ops.brute_force import (
     kinetic_energy,
     potential_energy,
 )
+from .ops.grid_tree import barnes_hut_grid
 from .simulation import Simulation, available_methods
 from .utils.accuracy import (
     accuracy_percentage,

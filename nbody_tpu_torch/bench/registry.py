@@ -1,11 +1,16 @@
-"""Method registry (PyTorch port of ``nbody_tpu.bench.registry``, tier a).
+"""Method registry (PyTorch port of ``nbody_tpu.bench.registry``, tiers a
+and b).
 
 Tier letters match the reference CLI (``main.cpp:885-928``): a = brute
-force, b = Barnes-Hut, h = BVH, f = FMM. Only tier a is ported:
+force, b = Barnes-Hut, h = BVH, f = FMM. Tiers a and b are ported:
 
 * ``BruteForce_Torch`` — plain blocked torch path (``BruteForce_JNP``);
 * ``BruteForce_CUDA`` — the Newton-3 symmetric CUDA kernel K1
-  (``BruteForce_Pallas``), for any N that fits on the card.
+  (``BruteForce_Pallas``), for any N that fits on the card;
+* ``BarnesHut_Grid`` (θ from the configuration) and
+  ``BarnesHut_Grid_Theta05`` — the grid tree, its near field on the K6
+  kernel for CUDA tensors, with the JAX package's hyperparameters.
+  (``BarnesHut_Sharded`` is multi-device: ROADMAP queue 1 item 12.)
 
 ``cuda_only`` methods run only when the run's device is CUDA.
 """
@@ -25,7 +30,7 @@ MethodFn = Callable[[torch.Tensor, torch.Tensor, GravityConfig, TreeConfig],
 # hyper(n, dim, gravity_cfg, tree_cfg) -> the resolved configuration
 HyperFn = Callable[[int, int, GravityConfig, TreeConfig], dict]
 
-PORTED_TIERS = "a"
+PORTED_TIERS = "ab"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +85,29 @@ def _bf_torch(pos, mass, cfg, tree_cfg):
 def _bf_cuda(pos, mass, cfg, tree_cfg):
     from ..ops.cuda_brute import brute_force_cuda
     return brute_force_cuda(pos, mass, cfg, mode="symmetric")
+
+
+# --- Tier b: Barnes-Hut ------------------------------------------------------
+
+def _bh_hyper(theta_of):
+    def hyper(n, dim, cfg, tree_cfg):
+        from ..ops.grid_tree import resolve_bh_params
+        p = dict(resolve_bh_params(n, dim, theta_of(cfg)))
+        p["layout"] = "auto"
+        return p
+    return hyper
+
+
+@register("BarnesHut_Grid", "b", hyper=_bh_hyper(lambda c: c.theta))
+def _bh_grid(pos, mass, cfg, tree_cfg):
+    from ..ops.grid_tree import barnes_hut_grid
+    return barnes_hut_grid(pos, mass, cfg, theta=cfg.theta)
+
+
+@register("BarnesHut_Grid_Theta05", "b", hyper=_bh_hyper(lambda c: 0.5))
+def _bh_grid_05(pos, mass, cfg, tree_cfg):
+    from ..ops.grid_tree import barnes_hut_grid
+    return barnes_hut_grid(pos, mass, cfg, theta=0.5)
 
 
 def reference_method_for(n: int, device) -> Method:

@@ -9,7 +9,7 @@ Flags:
   -N/--bodies INT     number of bodies (default 1000)
   -a/--accuracy {0,1} compute accuracy vs the brute-force oracle
   -m/--methods STR    tier letters: a=brute force, b=Barnes-Hut, h=BVH, f=FMM
-                      (default: all); only ``a`` is ported so far
+                      (default: all); ``a`` and ``b`` are ported so far
   --device {cuda,cpu} where the bodies live (default cuda). Without a GPU,
                       ``cuda`` is an error: the CLI never falls back.
 

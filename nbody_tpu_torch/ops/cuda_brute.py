@@ -20,7 +20,7 @@ plain PyTorch version beside it:
 
 Dispatch: a wrapper runs the plain version only for tensors on the CPU. For
 a CUDA tensor it launches the kernel or raises; nothing falls back. Each
-launch adds one to ``LAUNCHES[<kernel>]``.
+launch adds one to ``cuda_build.LAUNCHES[<kernel>]``.
 
 Guard policy, as the TPU kernels (``pallas_brute.py:48-60``): the reference
 pair skip (d² < 1e-10) is on only when softening == 0 unless ``guard`` says
@@ -36,13 +36,10 @@ import torch
 
 from ..config import DEFAULT_GRAVITY, GravityConfig
 from ..utils import cuda_build
+from ..utils.cuda_build import LAUNCHES
 from .brute_force import _PAD_POS, _accel_rows, _accel_rows_sym, \
     _diffs_d2, _guarded_u3
 from .keys import morton_key
-
-#: Kernel launches per kernel since the process started (or a caller reset).
-LAUNCHES = {"precise": 0, "symmetric": 0, "sym_tile": 0, "fused_steps": 0,
-            "mxu": 0}
 
 #: Square block of the symmetric kernel (csrc/symmetric.cu kSymBlock).
 SYM_BLOCK = 1024

@@ -10,8 +10,10 @@ Port of ``nbody_tpu.simulation``:
 
 ``"brute"`` resolves by the system's device: CUDA tensors go to the K2
 kernel (``brute_force_cuda``, mode ``"precise"``), CPU tensors to the plain
-``brute_force_blocked``, as the JAX package does off-TPU. The tree methods
-are not ported yet and raise ``NotImplementedError``.
+``brute_force_blocked``, as the JAX package does off-TPU. ``"barnes_hut"``
+is the grid tree (``ops/grid_tree.barnes_hut_grid``) at the configuration's
+θ; its near field runs the K6 kernel on CUDA tensors. The other tree
+methods are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,7 +31,6 @@ from .state import System
 
 # Methods of nbody_tpu.simulation that wait for a later slice of the port.
 _UNPORTED = {
-    "barnes_hut": "ROADMAP queue 1 item 8 (Barnes-Hut grid tier)",
     "bvh": "ROADMAP queue 1 item 11 (BVH)",
     "fmm": "ROADMAP queue 1 item 9 (FMM)",
 }
@@ -46,8 +47,14 @@ def _brute(gravity: GravityConfig, tree: TreeConfig, device: torch.device):
     raise ValueError(f"unsupported device type {device.type!r} (cpu or cuda)")
 
 
+def _bh(gravity: GravityConfig, tree: TreeConfig, device: torch.device):
+    from .ops.grid_tree import barnes_hut_grid
+    return functools.partial(barnes_hut_grid, config=gravity,
+                             theta=gravity.theta)
+
+
 # method name -> forces(positions, masses) builder
-_FORCE_BUILDERS = {"brute": _brute}
+_FORCE_BUILDERS = {"brute": _brute, "barnes_hut": _bh}
 
 
 def available_methods():

@@ -10,6 +10,9 @@ stale one is never loaded.
 
 Importing this module builds nothing; :func:`load_library` does, once per
 process.
+
+Each kernel's wrapper adds one to :data:`LAUNCHES` where it launches the
+kernel, and nowhere else.
 """
 
 from __future__ import annotations
@@ -34,6 +37,11 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",  # per-kernel registers / spills into the build log
 )
 
+#: Launches per kernel of the library since the process started (or a
+#: caller reset them).
+LAUNCHES = {"precise": 0, "symmetric": 0, "sym_tile": 0, "fused_steps": 0,
+            "mxu": 0, "p2p_leaf": 0, "rate_probe": 0, "matmul_probe": 0}
+
 _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # name: (argtypes, restype)
@@ -49,6 +57,12 @@ _SIGNATURES = {
                            _c_void_p), _c_int),
     "nbody_mxu_accel": ((_c_void_p, _c_void_p, _c_void_p, _c_int, _c_int,
                          _c_int, _c_int, _c_float, _c_void_p), _c_int),
+    "nbody_p2p_leaf": ((_c_void_p, _c_void_p, _c_void_p, _c_int, _c_int,
+                        _c_int, _c_int, _c_float, _c_int, _c_void_p), _c_int),
+    "nbody_rate_probe": ((_c_void_p, _c_int, _c_int, _c_int, _c_float,
+                          _c_float, _c_void_p), _c_int),
+    "nbody_matmul_probe": ((_c_void_p, _c_void_p, _c_void_p, _c_int, _c_int,
+                            _c_int, _c_int, _c_void_p), _c_int),
     "nbody_error_string": ((_c_int,), ctypes.c_char_p),
 }
 

@@ -37,7 +37,7 @@ def test_cli_no_files_and_steps(capsys):
     assert "final position of body 0:" in out
 
 
-@pytest.mark.parametrize("tiers", ["b", "ah", "f"])
+@pytest.mark.parametrize("tiers", ["bh", "ah", "f"])
 def test_cli_unported_tier_exits_2(tiers, capsys):
     assert cli.main(["-m", tiers, "--device", "cpu", "--no-files"]) == 2
     assert "not ported" in capsys.readouterr().err
@@ -51,8 +51,11 @@ def test_cli_default_tiers_leave_out_unported(capsys):
 
 def test_cli_bad_tier_and_gate(capsys):
     assert cli.main(["-m", "xyz", "--no-files"]) == 2
-    assert cli.main(["-N", "1000001", "--device", "cpu", "--dry-run"]) == 2
-    assert "skipping brute-force tier" in capsys.readouterr().out
+    assert cli.main(["-N", "1000001", "--device", "cpu", "--dry-run"]) == 0
+    out = capsys.readouterr().out
+    assert "skipping brute-force tier" in out
+    assert "BarnesHut_Grid" in out and "BruteForce" not in out.split(
+        "methods=")[1]
 
 
 def test_cli_cuda_without_gpu_fails(monkeypatch, capsys):
@@ -65,7 +68,10 @@ def test_registry_gates_cuda_methods_on_the_run_device():
     assert [m.name for m in registry.methods_for_tiers("a", "cpu")] == \
         ["BruteForce_Torch"]
     names = {m.name for m in registry.methods_for_tiers("abhf", "cuda")}
-    assert names == {"BruteForce_Torch", "BruteForce_CUDA"}
+    assert names == {"BruteForce_Torch", "BruteForce_CUDA", "BarnesHut_Grid",
+                     "BarnesHut_Grid_Theta05"}
+    assert [m.name for m in registry.methods_for_tiers("b", "cpu")] == \
+        ["BarnesHut_Grid", "BarnesHut_Grid_Theta05"]
     assert registry.get("BruteForce_CUDA").hyperparams(10, 2, None, None) \
         == {"kernel": "cuda_symmetric"}
     assert registry.reference_method_for(1 << 20, "cpu").name == \

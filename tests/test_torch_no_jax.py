@@ -1,4 +1,5 @@
-"""nbody_tpu_torch must never import JAX."""
+"""nbody_tpu_torch must never import JAX, nor the JAX package nbody_tpu
+(not even a module of it that imports no JAX)."""
 
 import pathlib
 import re
@@ -21,6 +22,9 @@ for name in mods:
     __import__(name)
 jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not jax_mods, jax_mods
+ref_mods = sorted(m for m in sys.modules
+                  if m == "nbody_tpu" or m.startswith("nbody_tpu."))
+assert not ref_mods, ref_mods
 print("OK", len(mods))
 """
 
@@ -39,3 +43,18 @@ def test_no_source_file_imports_jax():
     assert len(files) >= 15
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders
+
+
+# ``nbody_tpu`` followed by a word character is ``nbody_tpu_torch``.
+_REF_IMPORT = re.compile(
+    r"^\s*(import|from)\s+nbody_tpu\b|import_module\(\s*['\"]nbody_tpu\b",
+    re.M)
+
+
+def test_no_source_file_imports_the_jax_package():
+    files = list(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    offenders = [str(f) for f in files if _REF_IMPORT.search(f.read_text())]
+    assert not offenders
+    assert _REF_IMPORT.search("from nbody_tpu.ops.keys import quantize")
+    assert _REF_IMPORT.search("    import nbody_tpu")
+    assert not _REF_IMPORT.search("from nbody_tpu_torch.ops import keys")

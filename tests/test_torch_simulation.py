@@ -47,12 +47,12 @@ def test_run_and_energy_match_jax(dim, integrator):
 
 def test_methods_unknown_and_unported():
     _, tsys = shared(n=8)
-    assert available_methods() == ["brute"]
+    assert available_methods() == ["barnes_hut", "brute"]
     with pytest.raises(ValueError):
         Simulation.create(tsys, method="magic")
     with pytest.raises(ValueError):
         Simulation.create(tsys, integrator="rk9")
-    for method in ("barnes_hut", "bvh", "fmm"):
+    for method in ("bvh", "fmm"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Simulation.create(tsys, method=method)
 
