@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``nbody_tpu_torch/csrc`` (the brute-force
-kernels K1-K5, the tree near field K6 and the rate probe P), holds each
-against its plain PyTorch version on the card, and drives the port's paths
+kernels K1-K5, the tree near field K6 and the rate probe P; K1 and K3 on
+one Newton-3 tile engine, ``csrc/newton3_tile.cuh``, whose ptxas report
+must show no spills), holds each against its plain PyTorch version on the
+card, and drives the port's paths
 through the public entry points, each with the launch counts set to 0 just
 before it and read just after:
 
@@ -56,9 +58,17 @@ SEED = 0
 # (bench/registry.py:106-108), and a ragged odd-segment 3D case.
 SEG_N = 2_000_000
 SEG_N3 = 300_001
+# K1 and K3 against their plain versions at the edges of the engine's
+# 1024-body block: N below it, N = block - 1 and block + 1, and ragged N
+# over several blocks, in 2D and 3D, at softening 0 (with coincident
+# bodies) and at the default.
+K1_EDGE_N = [700, 1023, 1025, 3001]
+K3_EDGE = [(700, 300), (1023, 1025), (1025, 1023), (2500, 3001)]
 # K3 against its plain version: (targets, sources, dim, softening 0?).
 SYM_TILE_PAIRS = [(100, 200, 2, False), (130, 170, 3, False),
-                  (4099, 5000, 3, True), (3000, 1_000_003, 2, False)]
+                  (4099, 5000, 3, True), (3000, 1_000_003, 2, False)] + [
+    (t, s, dim, coincident) for t, s in K3_EDGE for dim in (2, 3)
+    for coincident in (False, True)]
 # K4: the reference's small-N row (1000,BruteForce_CUDA,2, BASELINE.md:20)
 # and the largest N the kernel takes; per-step time by differencing runs of
 # K_LO and K_HI steps (tools/smalln_floor.py:106-116).
@@ -184,12 +194,16 @@ def time_ms(fn, reps: int = 3) -> float:
 
 
 def coincident_set(n, gen, dev):
-    """softening=0 inputs with two coincident bodies (the guard must hold)."""
+    """softening=0 inputs with coincident bodies (the guard must hold):
+    rows 0 and 1, and rows 3 and n - 2, which lie in different 1024-body
+    blocks once n > 1028."""
     pos = torch.empty((n, 3), dtype=torch.float64)
     pos[:2] = torch.tensor([1.0, 1.0, 1.0])
     pos[2] = torch.tensor([5.0, 1.0, 1.0])
     pos[3:] = 10.0 + 10.0 * torch.rand((n - 3, 3), generator=gen,
                                        dtype=torch.float64)
+    if n > 5:
+        pos[n - 2] = pos[3]
     return pos.to(dev, torch.float32), torch.ones(n, device=dev)
 
 
@@ -229,6 +243,7 @@ def phase_sym_tile(cb, gen, dev, default) -> dict:
     for t, s, dim, coincident in SYM_TILE_PAIRS:
         if coincident:
             p, m = coincident_set(t + s, gen, dev)
+            p = p[:, :dim].contiguous()
             # Rows 0 and 1 coincide: row 1 is a target, row 0 a source.
             tp, tm = p[1:t + 1], m[1:t + 1]
             sp = torch.cat([p[:1], p[t + 1:]])
@@ -815,6 +830,16 @@ def phase_times(cb, gen, dev, default, smi) -> dict:
     print(f"    N={TIMED_N} 2D fp32 (K3: {TIMED_N} x {TIMED_N} cross tile): "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in t.items()))
     del small, pair
+    small = random_system(TIMED_N, 3, generator=gen, device=dev)
+    pair = random_system(2 * TIMED_N, 3, generator=gen, device=dev)
+    t["K1_3d"] = time_ms(lambda: cb.brute_force_cuda(
+        small.positions, small.masses, default, mode="symmetric"))
+    t["K3_3d"] = time_ms(lambda: cb.sym_tile_cuda(
+        pair.positions[:TIMED_N], pair.masses[:TIMED_N],
+        pair.positions[TIMED_N:], pair.masses[TIMED_N:], soft))
+    print(f"    N={TIMED_N} 3D fp32: K1 {t['K1_3d']:.3f} ms, K3 "
+          f"{t['K3_3d']:.3f} ms ({TIMED_N} x {TIMED_N} cross tile)")
+    del small, pair
 
     seg = random_system(SEG_N, 2, generator=gen, device=dev)
     t["segmented_2e6"] = time_ms(lambda: cb.brute_force_cuda_segmented(
@@ -847,8 +872,8 @@ def phase_times(cb, gen, dev, default, smi) -> dict:
     return t
 
 
-def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh,
-                 pr) -> list:
+def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, pr,
+                 n3_ptxas) -> list:
     """The kernels JSON line: every kernel with its launches on its path,
     its error against its plain version, its times and its bound."""
     from nbody_tpu_torch.tools import microbench as mb
@@ -858,9 +883,11 @@ def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh,
     # written once, one rsqrt per pair. No PyTorch call computes a softened
     # gravity sum, so K1-K6 have no library time.
     n, n2 = TIMED_N, TIMED_N * (TIMED_N - 1)
-    io_2d = n * (16 + 8)
+    io_2d, io_3d = n * (16 + 8), n * (16 + 12)
     bounds = {
         "K1": bound(17 * n2 / 2, io_2d, n2 / 2),
+        "K1_3d": bound(21 * n2 / 2, io_3d, n2 / 2),
+        "K3_3d": bound(21 * n * n, 2 * io_3d, n * n),
         "K2": bound(16 * n2, io_2d, n2),
         "K3": bound(17 * n * n, 2 * io_2d, n * n),
         "K4": bound(17 * SMALL_N * (SMALL_N - 1), SMALL_N * 64,
@@ -887,6 +914,10 @@ def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh,
          "launches": launches["symmetric"], "max_abs_err": k1_err,
          "ms": t["K1"], "plain_ms": t["K1_plain"], "timed_at": timed_at,
          "ms_n1048576_2d": big["symmetric"], "ms_n2e6_2d": t["K1_2e6"],
+         "ms_n262144_3d": t["K1_3d"],
+         "bound_ms_n262144_3d": bounds["K1_3d"]["bound_ms"],
+         "ptxas": {k: v for k, v in n3_ptxas.items()
+                   if k.endswith(",1>") or k.startswith("diagonal")},
          **bounds["K1"], "library_ms": None},
         {"name": "K2 precise (one-sided tile)", "route": "cuda",
          "source": "nbody_tpu_torch/csrc/precise.cu",
@@ -901,8 +932,12 @@ def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh,
          "launches": k3["launches"], "max_abs_err": k3["max_abs_err"],
          "ms": t["K3"], "plain_ms": t["K3_plain"],
          "timed_at": f"{TIMED_N} x {TIMED_N} 2D fp32 cross tile",
-         "segmented_ms_n2e6_2d": t["segmented_2e6"], **bounds["K3"],
-         "library_ms": None},
+         "segmented_ms_n2e6_2d": t["segmented_2e6"],
+         "ms_n262144_3d": t["K3_3d"],
+         "bound_ms_n262144_3d": bounds["K3_3d"]["bound_ms"],
+         "ptxas": {k: v for k, v in n3_ptxas.items()
+                   if k.startswith("newton3") and k.endswith(",0>")},
+         **bounds["K3"], "library_ms": None},
         {"name": "K4 fused small-N steps", "route": "cuda",
          "source": "nbody_tpu_torch/csrc/fused_steps.cu",
          "replaces": "nbody_tpu/ops/pallas_brute.py:849",
@@ -990,9 +1025,22 @@ def main() -> int:
     lib_path = cuda_build.library_path()
     print(f"[2] kernels built/loaded in {time.perf_counter() - t0:.1f} s: "
           f"{lib_path.name}; flags {' '.join(cuda_build.NVCC_FLAGS)}")
-    for line in lib_path.with_suffix(".log").read_text().splitlines():
+    log = lib_path.with_suffix(".log").read_text()
+    for line in log.splitlines():
         if re.search(r"Compiling entry|registers|spill", line):
             print("    " + line.strip())
+    # K1 and K3's kernels (the Newton-3 engine and K1's diagonal blocks):
+    # registers and spills from the ptxas report; a spill fails the run.
+    n3_ptxas = {cuda_build.kernel_label(k): v
+                for k, v in cuda_build.ptxas_report(log).items()
+                if re.search(r"newton3_kernel|diagonal_kernel", k)}
+    for label, rep in sorted(n3_ptxas.items()):
+        print(f"    {label}: {rep}")
+        if rep.get("spill_stores") or rep.get("spill_loads"):
+            raise AssertionError(f"{label} spills: {rep}")
+    if len(n3_ptxas) != 12:
+        raise AssertionError(f"Newton-3 kernels in the ptxas report: "
+                             f"{sorted(n3_ptxas)}")
 
     gen = torch.Generator().manual_seed(SEED)
     default = GravityConfig()
@@ -1029,6 +1077,13 @@ def main() -> int:
                        default),
                       ("N=3000 2D", extra[1].positions, extra[1].masses,
                        default)]
+    for dim in (2, 3):
+        for n in K1_EDGE_N:
+            b = random_system(n, dim, generator=gen, device=dev)
+            p0, m0 = coincident_set(n, gen, dev)
+            k1_sets += [(f"N={n} {dim}D", b.positions, b.masses, default),
+                        (f"N={n} {dim}D softening=0 coincident",
+                         p0[:, :dim].contiguous(), m0, unit0)]
     for label, pos, mass, cfg in k1_sets:
         nb = -(-pos.shape[0] // cb.SYM_BLOCK)
         got = cb.brute_force_cuda(pos, mass, cfg, mode="symmetric")
@@ -1108,7 +1163,7 @@ def main() -> int:
     pr = phase_probe(cb, seeded(13), dev, smi)
 
     kernels = kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh,
-                           pr)
+                           pr, n3_ptxas)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

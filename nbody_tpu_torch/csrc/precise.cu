@@ -25,7 +25,7 @@
 // targets per thread is later work.
 //
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-// (no --use_fast_math; rsqrtf is the hardware approximation either way).
+// (no --use_fast_math; the pair law's rsqrt is MUFU.RSQ, pair_law.cuh).
 #include "pair_law.cuh"
 
 namespace nbody {

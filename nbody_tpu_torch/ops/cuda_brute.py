@@ -12,6 +12,14 @@ plain PyTorch version beside it:
   blocks, :func:`sym_tile_cuda`, ``csrc/sym_tile.cu``; plain version
   :func:`sym_tile_plain`. It carries the cross pairs of
   :func:`brute_force_cuda_segmented`.
+
+  K1's off-diagonal block pairs and K3's tiles run on one Newton-3 tile
+  engine, ``csrc/newton3_tile.cuh``: a lane owns 8 targets, a warp passes
+  each source's partial from lane to lane (one shuffle per dimension and
+  8 pairs) and writes it once to shared slots of its own, and the CTA adds
+  both sides to fp64 device memory once per block pair. What bounds it is
+  FP32 issue (12 instructions a pair in 2D, 16 in 3D, and a MUFU rsqrt),
+  not bytes. K1's diagonal blocks are a second launch of the same call.
 * K4 (``_kernel_fused_steps``): K Euler/leapfrog steps of N ≤ 2048 bodies in
   one launch, :func:`fused_smalln_simulate`, ``csrc/fused_steps.cu``; plain
   version :func:`fused_smalln_plain`.
@@ -41,7 +49,8 @@ from .brute_force import _PAD_POS, _accel_rows, _accel_rows_sym, \
     _diffs_d2, _guarded_u3
 from .keys import morton_key
 
-#: Square block of the symmetric kernel (csrc/symmetric.cu kSymBlock).
+#: Square block of K1 and K3: kN3Block = 32 · kN3Warps · kN3R bodies
+#: (csrc/newton3_tile.cuh).
 SYM_BLOCK = 1024
 
 # Target rows per plain-version step: keeps each [rows, S] temporary at
@@ -230,9 +239,22 @@ def _mxu(targets, src_pos, src_mass, softening, block_t):
 
 def _tri_pair(k: int):
     """k-th unordered block pair (a, b), b <= a, k = a(a+1)/2 + b — the
-    enumeration of csrc/symmetric.cu tri_pair."""
+    enumeration of csrc/newton3_tile.cuh tri_pair."""
     a = (math.isqrt(8 * k + 1) - 1) // 2
     return a, k - a * (a + 1) // 2
+
+
+def _lower_pair(k: int):
+    """k-th block pair (a, b), b < a, of the strict lower triangle: K1's
+    off-diagonal walk, (a + 1, b) for the k-th pair of :func:`_tri_pair`."""
+    a, b = _tri_pair(k)
+    return a + 1, b
+
+
+def _rect_pair(k: int, ns: int):
+    """K3's walk: (target block, source block) of tile k of a rectangle
+    with ``ns`` source blocks."""
+    return divmod(k, ns)
 
 
 def symmetric_forces_plain(positions, masses,
@@ -240,9 +262,10 @@ def symmetric_forces_plain(positions, masses,
                            guard=None, block: int = SYM_BLOCK):
     """Plain version of K1: forces [N, D] from the kernel's block pairs.
 
-    Diagonal blocks one-sided (target side only), off-diagonal blocks
-    through ``_accel_rows_sym`` (both sides from one sweep). Runs in the
-    inputs' dtype.
+    The diagonal blocks one-sided (target side only), then the strict lower
+    triangle's block pairs through ``_accel_rows_sym`` (both sides from one
+    sweep), with each side's mass applied to its sum, as the kernel's two
+    launches do. Runs in the inputs' dtype.
     """
     if guard is None:
         guard = float(config.softening) == 0.0
@@ -250,19 +273,21 @@ def symmetric_forces_plain(positions, masses,
     nb = -(-n // block)
     soft = config.softening
     forces = torch.zeros_like(positions)
-    for k in range(nb * (nb + 1) // 2):
-        a, b = _tri_pair(k)
-        ta, sb = slice(a * block, (a + 1) * block), slice(b * block,
-                                                          (b + 1) * block)
-        tp, tm = positions[ta], masses[ta]
-        if a == b:
-            forces[ta] += tm[:, None] * _accel_rows(tp, tp, tm, soft,
-                                                    guard=guard)
-            continue
-        sp, sm = positions[sb], masses[sb]
+
+    def rows(a):
+        return slice(a * block, (a + 1) * block)
+
+    for a in range(nb):
+        tp, tm = positions[rows(a)], masses[rows(a)]
+        forces[rows(a)] += tm[:, None] * _accel_rows(tp, tp, tm, soft,
+                                                     guard=guard)
+    for k in range(nb * (nb - 1) // 2):
+        a, b = _lower_pair(k)
+        tp, tm = positions[rows(a)], masses[rows(a)]
+        sp, sm = positions[rows(b)], masses[rows(b)]
         acc_t, part_s = _accel_rows_sym(tp, tm, sp, sm, soft, guard=guard)
-        forces[ta] += tm[:, None] * acc_t
-        forces[sb] += sm[:, None] * part_s
+        forces[rows(a)] += tm[:, None] * acc_t
+        forces[rows(b)] += sm[:, None] * part_s
     return config.G * forces
 
 
@@ -272,13 +297,14 @@ def _symmetric_cuda(positions, masses, config, guard):
     acc = torch.zeros((n, 4), dtype=torch.float64, device=positions.device)
     lib = cuda_build.load_library()
     if lib.nbody_symmetric_block() != SYM_BLOCK:
-        raise RuntimeError("csrc/symmetric.cu kSymBlock != SYM_BLOCK")
+        raise RuntimeError("csrc/newton3_tile.cuh kN3Block != SYM_BLOCK")
     code = lib.nbody_symmetric_forces(
         pm4.data_ptr(), acc.data_ptr(), n, dim,
         float(config.softening) ** 2, int(bool(guard)), _stream())
     cuda_build.check(code, "symmetric kernel")
     LAUNCHES["symmetric"] += 1
-    # w already carries m_t·m_s, so this is the force, scaled by G only.
+    # Each side's sum already carries both masses: the force, scaled by G
+    # only.
     return (config.G * acc[:, :dim]).to(torch.float32)
 
 

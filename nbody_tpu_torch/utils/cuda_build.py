@@ -21,6 +21,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -138,6 +139,38 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = restype
     return lib
+
+
+def ptxas_report(log: str) -> dict:
+    """Per kernel (mangled name) of a build log: the registers, spill
+    stores and loads and static shared memory (bytes) that ``ptxas -v``
+    reported."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = out.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and entry is not None:
+            entry["spill_stores"], entry["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            entry["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            entry["smem"] = int(m.group(1)) if m else 0
+    return out
+
+
+def kernel_label(mangled: str) -> str:
+    """``name<template args>`` of a mangled kernel name of this library,
+    e.g. ``newton3_kernel<2,0,1>`` (int and bool template arguments)."""
+    m = re.search(r"N5nbody\d+(\w+?)I((?:L[ib]\d+E)+)E", mangled)
+    if not m:
+        return mangled
+    args = re.findall(r"L[ib](\d+)E", m.group(2))
+    return f"{m.group(1)}<{','.join(args)}>"
 
 
 def check(code: int, what: str) -> None:
