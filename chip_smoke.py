@@ -5,9 +5,9 @@
 
 Builds the CUDA kernels from ``nbody_tpu_torch/csrc`` (the brute-force
 kernels K1-K5, the tree near field K6 and the rate probe P; K1 and K3 on
-one Newton-3 tile engine, ``csrc/newton3_tile.cuh``, whose ptxas report
-must show no spills), holds each against its plain PyTorch version on the
-card, and drives the port's paths
+one Newton-3 tile engine, ``csrc/newton3_tile.cuh``; the ptxas report must
+show no spills in the engine, K6 or P's product), holds each against its
+plain PyTorch version on the card, and drives the port's paths
 through the public entry points, each with the launch counts set to 0 just
 before it and read just after:
 
@@ -17,9 +17,9 @@ before it and read just after:
 * fused small-N stepping at N = 1000 2D (K4);
 * the matmul-form tile with Morton sorting at N = 262,144 2D (K5);
 * the Barnes-Hut grid tier, ``Simulation(method="barnes_hut")`` and the CLI
-  ``-m b`` at N = 1e6 2D and 1e5 3D (K6, its launches held to the count
-  the tree's shapes give), with its accuracy against the f64 oracle, K6
-  against the plain near field on one tree, and the phase times;
+  ``-m b`` at N = 1e6 2D and 1e5 3D (K6's tree kernel, one launch per
+  evaluated segment), with its accuracy against the f64 oracle, K6 against
+  the plain near field on one tree, and the phase times;
 * the rate-probe tool ``nbody_tpu_torch.tools.microbench`` (P).
 
 It times every kernel against its plain version and gives each its bound
@@ -96,6 +96,9 @@ SAMPLED_ROWS = 2048
 # field on the card, which failed the 4 ulps K3 is held to. K6 is held to 8,
 # about twice that reading and under the worst case.
 K6_ULPS = 8
+# K6's tree kernel on the near field's edge cases: bodies in [0, 1]^D at
+# the leaf level barnes_hut_grid picks for theta = 0.25 (N, dim).
+K6_EDGE = [(200_000, 2), (100_000, 3)]
 # The Barnes-Hut grid tier at the reference's own rows (BASELINE.md:29-32,
 # uniform random_system): Simulation and CLI sizes, leapfrog steps, and the
 # timed force evaluations (N, dim, theta); K6's own line is timed at the
@@ -128,6 +131,16 @@ BH_ROWS_SLACK = 4 * 100.0 / BH_ROWS
 PROBE_ITERS_SMALL = 5
 PROBE_ITERS = 1 << 20
 PROBE_ITERS_TIMED = 16384
+# P's product against its f64 plain version, scale-normalized, at the
+# tool's 64 repeats of U(0, 1) inputs. An output of the wide kernel is an
+# fp32 chain of 64 repeats x 32 k of one k-group, then 8 + 8 adds; round-
+# to-nearest errors of a growing chain of n positive terms come to about
+# sqrt(n / 3) * 2^-24 of the sum, 1.6e-6 at n = 2048 (the worst case,
+# n * 2^-24, is 1.2e-4). The narrow kernel's chains are 512 long. 2e-5 is
+# twelve times the expected reading.
+MATMUL_TOL = 2e-5
+# P's product off the tool's shapes: ragged M, S and K for both kernels.
+MATMUL_RAGGED = [(37, 2500, 7), (37, 2500, 150)]
 # Published H100 SXM peaks (NVIDIA's data sheet, dense): fp32 outside the
 # tensor cores, HBM3. The MUFU rsqrt rate is 16 lanes/clk on each of 132
 # SMs at the 1.98 GHz boost clock (Hopper white paper).
@@ -449,16 +462,13 @@ def bh_tree(gt, pos, mass, theta):
 
 
 def k6_calls(gt, tree, k):
-    """K6's inputs for the first leaf batch of the path, as the path forms
-    them, each with its target slots' validity (for the real pair count)."""
+    """The window entry's inputs for the first leaf batch, as the plain
+    near field forms them: [(targets, sources)], one per child parity in
+    the parent-shared layout."""
     lb, _ = gt.near_batch_plan(tree, k)
     ids = torch.arange(lb, device=tree.pos_sorted.device)
-    tb, _, tvalid = gt._window_rows(tree, ids)
-    calls, shared = gt.near_field_inputs(tree, k, ids, tb)
-    nch = 1 << tree.dim
-    tvs = (tvalid.reshape(lb // nch, nch, -1).unbind(1) if shared
-           else [tvalid])
-    return [(t, s, tv) for (t, s), tv in zip(calls, tvs)]
+    tb, _, _ = gt._window_rows(tree, ids)
+    return gt.near_field_inputs(tree, k, ids, tb)[0]
 
 
 def tree_f64(gt, tree):
@@ -473,17 +483,39 @@ def tree_f64(gt, tree):
         for f in dataclasses.fields(tree)})
 
 
-def real_pairs(src4, tvalid) -> int:
-    """Target bodies × sources of non-zero mass, summed over leaf rows."""
-    return int((tvalid.sum(1) * (src4[..., 3] != 0).sum(1)).sum())
+def unit_tree(gt, n, dim, gen, dev):
+    """A tree over n bodies in [0, 1]^D at the leaf level barnes_hut_grid
+    picks for theta = 0.25, for the near field's edge cases: 99 coincident
+    twins (one leaf each), 100 twins 2e-6 apart astride a cell boundary
+    (raw d² < 1e-10 in neighbouring leaves), every fifth mass 0. Returns
+    (k, tree, twins astride two leaves)."""
+    rp = gt.resolve_bh_params(n, dim, 0.25)
+    L = rp["leaf_level"]
+    pos = torch.rand((n, dim), generator=gen, dtype=torch.float64)
+    pos[0], pos[1] = 0.0, 1.0  # the bounds stay [0, 1]
+    pos[2:200:2] = pos[3:200:2]
+    a = torch.arange(200, 400, 2)
+    edge = -0.005 + 1.01 / (1 << L) * torch.randint(
+        1, (1 << L) - 1, (a.numel(),), generator=gen).double()
+    pos[a, 0], pos[a + 1, 0] = edge - 1e-6, edge + 1e-6
+    pos[a + 1, 1:] = pos[a, 1:]
+    mass = 0.5 + torch.rand(n, generator=gen, dtype=torch.float64)
+    mass[::5] = 0.0
+    p32, m32 = pos.float().to(dev), mass.float().to(dev)
+    tree = gt.build_grid_tree(p32, m32, L, gt.compute_capacity(p32, L))
+    leaf = torch.empty_like(tree.leaf_ids)
+    leaf[tree.order] = tree.leaf_ids
+    astride = int((leaf[a.to(dev)] != leaf[a.to(dev) + 1]).sum())
+    return rp["k"], tree, astride
 
 
 def phase_p2p(gen, dev, default) -> dict:
-    """[11] K6 against its f64 plain version on the card."""
+    """[11] K6 against its f64 plain version on the card: the window entry
+    in the JAX kernel's layout, then the path's tree kernel."""
     from nbody_tpu_torch.ops import cuda_p2p, grid_tree as gt
     from nbody_tpu_torch.state import random_system
-    print(f"[11] K6 p2p_leaf vs f64 plain version (tol: max(1e-5, "
-          f"{K6_ULPS} fp32 ulps of the largest force / RMS))")
+    print(f"[11] K6 vs f64 plain version (tol: max(1e-5, {K6_ULPS} fp32 ulps "
+          f"of the largest force / RMS)); the window entry p2p_leaf first")
     sets = []
     # Coincident pairs (each target's twin among the sources) and
     # zero-mass sources, at softening 0 and at the default.
@@ -500,16 +532,18 @@ def phase_p2p(gen, dev, default) -> dict:
             sets.append((f"{b}x{c}x{s} {dim}D coincident + zero-mass, "
                          f"softening={soft:g}", t.float().to(dev),
                          src.float().to(dev), soft))
-    # The JAX test's shape (N = 500 3D, θ = 0.5) and the path's own inputs.
+    # The JAX test's shape (N = 500 3D, θ = 0.5) and the path's windows.
+    trees = {}
     for n, dim, theta in ((500, 3, 0.5), (1_000_000, 2, 0.25),
                           (1_000_000, 2, 0.5), (100_000, 3, 0.25),
                           (100_000, 3, 0.5)):
         bodies = random_system(n, dim, generator=gen, device=dev)
         rp, tree = bh_tree(gt, bodies.positions, bodies.masses, theta)
+        trees[(n, dim, theta)] = (rp, tree)
         calls = k6_calls(gt, tree, rp["k"])
         layout = "parent-shared" if len(calls) > 1 else "k=1 neighbours"
-        t, s, _ = calls[0]
-        sets.append((f"path N={n} {dim}D theta={theta} ({layout}) "
+        t, s = calls[0]
+        sets.append((f"window N={n} {dim}D theta={theta} ({layout}) "
                      f"{tuple(t.shape)} x {tuple(s.shape)}", t, s,
                      default.softening))
     errs = []
@@ -520,11 +554,43 @@ def phase_p2p(gen, dev, default) -> dict:
         w = want.reshape(-1, dim)
         errs.append(check_close(label, got.reshape(-1, dim), w,
                                 tol=max(1e-5, fp32_floor(w, K6_ULPS))))
+
+    def tree_case(label, tree, k, soft, segments=1):
+        nl = tree.num_leaf_cells // segments
+        got = sum(cuda_p2p.near_field_cuda(tree, k, soft, si * nl, nl)
+                  for si in range(segments))
+        if not torch.equal(got, sum(
+                cuda_p2p.near_field_cuda(tree, k, soft, si * nl, nl)
+                for si in range(segments))):
+            raise AssertionError(f"{label}: two launches differ")
+        want = cuda_p2p.near_field_plain(tree_f64(gt, tree), k, soft)
+        errs.append(check_close(
+            f"{label}, {cuda_p2p.near_field_pairs(tree, k)} real pairs", got,
+            want, tol=max(1e-5, fp32_floor(want, K6_ULPS))))
+
+    print("    the tree kernel near_field vs the f64 plain near field")
+    for n, dim in K6_EDGE:
+        k, tree, astride = unit_tree(gt, n, dim, gen, dev)
+        print(f"    N={n} {dim}D in [0, 1]^{dim}, L={tree.leaf_level}, k={k}, "
+              f"capacity {tree.capacity}: {astride} of 100 close twins in "
+              "two leaves")
+        if astride < 90:
+            raise AssertionError(f"only {astride} twins astride two leaves")
+        for soft in (0.0, default.softening):
+            tree_case(f"N={n} {dim}D twins, zero masses, softening={soft:g}",
+                      tree, k, soft)
+    rp, tree = trees[(1_000_000, 2, 0.5)]
+    tree_case(f"N=1e6 2D theta=0.5 (capacity {tree.capacity}: leaves of up "
+              "to 10 target chunks)", tree, rp["k"], default.softening)
+    rp, tree = trees[(100_000, 3, 0.25)]
+    tree_case("N=1e5 3D theta=0.25 in 4 segments (4 launches)", tree,
+              rp["k"], default.softening, segments=4)
     return {"max_abs_err": max(errs)}
 
 
 def phase_bh(cb, gen, dev, default, smi) -> dict:
-    """[12] The Barnes-Hut grid tier on the card (path A), K6 counted."""
+    """[12] The Barnes-Hut grid tier on the card (path A), K6 counted: one
+    launch of its tree kernel per evaluated segment."""
     from nbody_tpu_torch import Simulation, cli
     from nbody_tpu_torch.ops import cuda_p2p, grid_tree as gt
     from nbody_tpu_torch.ops.hier_far import hier_far_coeffs
@@ -569,9 +635,8 @@ def phase_bh(cb, gen, dev, default, smi) -> dict:
             device=dev)
         rows = torch.randperm(n, generator=torch.Generator().manual_seed(
             BH_SEED + 1))[:BH_ROWS].to(dev)
-        rp, tree = bh_tree(gt, bodies.positions, bodies.masses,
-                           default.theta)
-        want = 2 * BH_STEPS * gt.near_launches(tree, rp["k"])
+        rp = gt.resolve_bh_params(n, dim, default.theta)
+        want = 2 * BH_STEPS * rp["num_segments"]
         sim = Simulation.create(bodies, default, method="barnes_hut")
         print(f"    Simulation('barnes_hut').run(steps={BH_STEPS}), N={n} "
               f"{dim}D, theta={default.theta} ({rp})")
@@ -582,8 +647,8 @@ def phase_bh(cb, gen, dev, default, smi) -> dict:
         launches = dict(counts())
         print(f"    ran in {time.perf_counter() - t0:.2f} s")
         expect_launches(f"Simulation N={n} {dim}D", launches,
-                        {"p2p_leaf": want})
-        out["launches"] += launches["p2p_leaf"]
+                        {"near_field": want, "p2p_leaf": 0})
+        out["launches"] += launches["near_field"]
         if not (bool(torch.isfinite(sim.system.positions).all())
                 and sim.step_count == BH_STEPS):
             raise AssertionError("Simulation('barnes_hut') state not finite")
@@ -597,15 +662,10 @@ def phase_bh(cb, gen, dev, default, smi) -> dict:
         args = ["-d", str(dim), "-N", str(n), "-m", "b", "--no-files",
                 "--device", "cuda"] + (["-a", "1"] if acc else [])
         print(f"    CLI: {' '.join(args)}")
-        # The CLI's own draw (seed 0), to count the launches it must make:
-        # each method one warm-up and one timed evaluation.
-        same = random_system(n, dim, generator=torch.Generator().manual_seed(0),
-                             device=dev)
-        want = 0
-        for theta in (default.theta, 0.5):
-            rp, tree = bh_tree(gt, same.positions, same.masses, theta)
-            want += 2 * gt.near_launches(tree, rp["k"])
-        del same, tree
+        # The launches it must make: each method one warm-up and one timed
+        # evaluation, each one launch per segment.
+        want = sum(2 * gt.resolve_bh_params(n, dim, theta)["num_segments"]
+                   for theta in (default.theta, 0.5))
         buf = io.StringIO()
         reset_launches()
         with contextlib.redirect_stdout(buf):
@@ -616,8 +676,8 @@ def phase_bh(cb, gen, dev, default, smi) -> dict:
         if rc != 0:
             raise AssertionError(f"CLI rc {rc}")
         expect_launches(f"CLI -m b N={n} {dim}D", launches,
-                        {"p2p_leaf": want})
-        out["launches"] += launches["p2p_leaf"]
+                        {"near_field": want, "p2p_leaf": 0})
+        out["launches"] += launches["near_field"]
         if acc:
             for name, tol in (("BarnesHut_Grid", 1e-3),
                               ("BarnesHut_Grid_Theta05", 4e-2)):
@@ -678,16 +738,15 @@ def phase_bh(cb, gen, dev, default, smi) -> dict:
         if rp["far_impl"] == "hier":
             row["hier_sweep"] = time_ms(lambda: hier_far_coeffs(
                 tree, k, multipole="quad"))
-        t, s, tv = k6_calls(gt, tree, k)[0]
-        # The kernel alone on buffers packed once, and the whole wrapper
-        # (packing, output allocation, launch, cast back).
-        bufs = cuda_p2p.p2p_leaf_pack(t, s)
-        row["k6_one_launch"] = time_ms(lambda: cuda_p2p.p2p_leaf_launch(
-            *bufs, dim, default.softening))
-        row["k6_wrapper"] = time_ms(lambda: cuda_p2p.p2p_leaf_cuda(
-            t, s, softening=default.softening))
-        row["k6_launches"] = gt.near_launches(tree, k)
-        row["k6_shape"] = f"{tuple(t.shape)} x {tuple(s.shape)}"
+        # The tree kernel alone: one launch over every leaf on the tree's
+        # own buffers, as the path makes it.
+        bufs = cuda_p2p.near_field_buffers(tree)
+        out32 = torch.zeros((tree.n, dim), dtype=torch.float32, device=dev)
+        row["k6_one_launch"] = time_ms(lambda: cuda_p2p.near_field_launch(
+            bufs, out32, dim=dim, leaf_level=L, k=k, leaf0=0,
+            nleaves=tree.num_leaf_cells, softening=default.softening))
+        row["k6_launches"] = rp["num_segments"]
+        row["k6_pairs"] = cuda_p2p.near_field_pairs(tree, k)
         row["leaf_level"], row["capacity_value"] = L, tree.capacity
         key = f"{n}_{dim}d_theta{theta}"
         times[key] = row
@@ -696,16 +755,25 @@ def phase_bh(cb, gen, dev, default, smi) -> dict:
               + ", ".join(f"{a} {b:.3f} ms" if isinstance(b, float)
                           else f"{a} {b}" for a, b in row.items()))
         if key == BH_K6_TIMED:
-            out.update(k6_ms=row["k6_one_launch"],
-                       k6_wrapper_ms=row["k6_wrapper"],
-                       k6_shape=row["k6_shape"],
-                       k6_pairs=real_pairs(s, tv), k6_bytes=(
-                           t.shape[0] * (2 * t.shape[1] + s.shape[1]) * 16),
-                       k6_plain_ms=time_ms(lambda: cuda_p2p.p2p_plain(
-                           t, s, default.softening)),
-                       k6_slots=t.shape[0] * t.shape[1] * s.shape[1],
-                       k6_dim=dim)
-        del bodies, pos, mass, tree, t, s
+            # The window entry on the path's first window of the old layout:
+            # the kernel alone, and the whole wrapper (packing, output,
+            # launch, cast back).
+            t, s = k6_calls(gt, tree, k)[0]
+            wbufs = cuda_p2p.p2p_leaf_pack(t, s)
+            out.update(
+                k6_ms=row["k6_one_launch"], k6_pairs=row["k6_pairs"],
+                k6_bytes=(tree.n * 16 + 2 * tree.num_leaf_cells * 8
+                          + tree.n * dim * 4),
+                k6_plain_ms=time_ms(lambda: cuda_p2p.near_field_plain(
+                    tree, k, default.softening)),
+                k6_dim=dim,
+                window_ms=time_ms(lambda: cuda_p2p.p2p_leaf_launch(
+                    *wbufs, dim, default.softening)),
+                window_wrapper_ms=time_ms(lambda: cuda_p2p.p2p_leaf_cuda(
+                    t, s, softening=default.softening)),
+                window_shape=f"{tuple(t.shape)} x {tuple(s.shape)}")
+            del t, s, wbufs
+        del bodies, pos, mass, tree, bufs, out32
     out["times"] = times
     return out
 
@@ -737,15 +805,34 @@ def phase_probe(cb, gen, dev, smi) -> dict:
         if not rel <= probe_tol(op):
             raise AssertionError(f"P {op.name}: {rel}")
     m, s = mb.MATMUL_SHAPE
-    mm_err = 0.0
-    for kk in mb.MATMUL_KS:
-        a = torch.rand((m, s), generator=gen).to(dev)
-        b = torch.rand((s, kk), generator=gen).to(dev)
-        got = mb.matmul_probe(a, b, 2)
-        want = mb.matmul_probe_plain(a.double(), b.double(), 2)
-        mm_err = max(mm_err, float((got.double() - want).abs().max()))
-        check_close(f"matmul probe ({m},{s})@({s},{kk}) x2 vs f64", got,
-                    want, tol=1e-5)
+    reps = mb.MATMUL_REPS
+    print(f"    matmul probe vs f64 plain, {reps} repeats (tol {MATMUL_TOL:g}); "
+          f"times: CUDA events, 1 warm-up, median of 3, {smi}")
+    mm = {}
+    for mi, si, kk in [(m, s, kk) for kk in mb.MATMUL_KS] + MATMUL_RAGGED:
+        a = torch.rand((mi, si), generator=gen).to(dev)
+        b = torch.rand((si, kk), generator=gen).to(dev)
+        label = f"({mi},{si})@({si},{kk}) x{reps}"
+        got = mb.matmul_probe(a, b, reps)
+        err = check_close(f"matmul probe {label}", got,
+                          mb.matmul_probe_plain(a.double(), b.double(), reps),
+                          tol=MATMUL_TOL)
+        if not torch.equal(got, mb.matmul_probe(a, b, reps)):
+            raise AssertionError(f"matmul probe {label}: two launches differ")
+        if (mi, si) != (m, s):
+            continue
+        # The library's one call for the same sum (TF32 off): the repeats
+        # laid end to end along S, built outside the timing.
+        a_rep, b_rep = a.repeat(1, reps), b.repeat(reps, 1)
+        mm[kk] = {"max_abs_err": err,
+                  "ms": time_ms(lambda: mb.matmul_probe(a, b, reps)),
+                  "plain_ms": time_ms(lambda: mb.matmul_probe_plain(a, b,
+                                                                    reps)),
+                  "library_ms": time_ms(lambda: torch.matmul(a_rep, b_rep))}
+        print(f"    {label}: kernel {mm[kk]['ms']:.4f} ms, plain "
+              f"{mm[kk]['plain_ms']:.4f} ms, torch.matmul fp32 "
+              f"{mm[kk]['library_ms']:.4f} ms")
+        del a_rep, b_rep
     print(f"    python -m nbody_tpu_torch.tools.microbench, {smi}")
     reset_launches()
     rates = mb.run(iters=PROBE_ITERS, device=dev, log=lambda s: print("  " + s))
@@ -768,8 +855,7 @@ def phase_probe(cb, gen, dev, smi) -> dict:
              "plain_ms": time_ms(lambda: mb.rate_probe_plain(
                  fma, x, PROBE_ITERS_TIMED), reps=1),
              "max_abs_err": diff}
-    return {"launches": launches, "rates": rates, "fma": fma_t,
-            "matmul_err": mm_err}
+    return {"launches": launches, "rates": rates, "fma": fma_t, "mm": mm}
 
 
 def bound(flops, nbytes, rsqrts) -> dict:
@@ -897,12 +983,11 @@ def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, pr,
                     bh["k6_pairs"]),
     }
     nblk = mb.BLOCK[0] * mb.BLOCK[1]
-    (mm_m, mm_s), mm = mb.MATMUL_SHAPE, pr["rates"]["matmul"][128]
-    p_bounds = {
-        "rate": bound(2 * nblk * PROBE_ITERS_TIMED, 2 * nblk * 4, 0),
-        "matmul": bound(2 * mm_m * mm_s * 128 * mb.MATMUL_REPS,
-                        (mm_m * mm_s + mm_s * 128 + mm_m * 128) * 4, 0),
-    }
+    (mm_m, mm_s), mm = mb.MATMUL_SHAPE, pr["mm"]
+    p_bounds = {"rate": bound(2 * nblk * PROBE_ITERS_TIMED, 2 * nblk * 4, 0)}
+    for kk in mb.MATMUL_KS:
+        p_bounds[kk] = bound(2 * mm_m * mm_s * kk * mb.MATMUL_REPS,
+                             (mm_m * mm_s + mm_s * kk + mm_m * kk) * 4, 0)
     bh_t = bh["times"][BH_K6_TIMED]
 
     timed_at = f"N={TIMED_N} 2D fp32"
@@ -955,18 +1040,24 @@ def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, pr,
          "launches": k5["launches"], "max_abs_err": k5["max_abs_err"],
          "ms": t["K5"], "plain_ms": t["K5_plain"], "timed_at": timed_at,
          "k2_ms": t["K2"], **bounds["K5"], "library_ms": None},
-        {"name": "K6 p2p_leaf (leaf near field)", "route": "cuda",
-         "source": "nbody_tpu_torch/csrc/p2p_leaf.cu",
+        {"name": "K6 near field (tree kernel; window entry p2p_leaf)",
+         "route": "cuda", "source": "nbody_tpu_torch/csrc/p2p_leaf.cu",
          "replaces": "nbody_tpu/ops/pallas_p2p.py:30",
          "launches": bh["launches"], "max_abs_err": k6["max_abs_err"],
          "ms": bh["k6_ms"], "plain_ms": bh["k6_plain_ms"],
-         "timed_at": "one launch of the path, N=1e6 2D theta=0.25, "
-                     f"{bh['k6_shape']} fp32, kernel only",
-         "wrapper_ms": bh["k6_wrapper_ms"],
-         "real_pairs": bh["k6_pairs"], "pair_slots": bh["k6_slots"],
+         "timed_at": "one launch of the path, N=1e6 2D theta=0.25, every "
+                     "leaf, fp32, kernel only",
+         "real_pairs": bh["k6_pairs"],
+         "ms_by_shape": {key: row["k6_one_launch"]
+                         for key, row in bh["times"].items()},
+         "real_pairs_by_shape": {key: row["k6_pairs"]
+                                 for key, row in bh["times"].items()},
          "near_ms_per_eval": bh_t["near"],
          "near_plain_ms_per_eval": bh_t["near_plain"],
          "launches_per_eval": bh_t["k6_launches"],
+         "wrapper_ms": bh["window_wrapper_ms"],
+         "window_kernel_ms": bh["window_ms"],
+         "window_shape": bh["window_shape"],
          **bounds["K6"], "library_ms": None},
         {"name": "P rate probe (dependent op loop)", "route": "cuda",
          "source": "nbody_tpu_torch/csrc/rate_probe.cu",
@@ -978,18 +1069,21 @@ def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, pr,
                      "iterations",
          "rates_per_s": {k: v["rate"] for k, v in pr["rates"]["ops"].items()},
          **p_bounds["rate"], "library_ms": None},
-        {"name": "P matmul probe (skinny fp32 SIMT product)", "route": "cuda",
+        {"name": "P matmul probe (skinny fp32 SIMT GEMM, tiles in shared "
+                 "memory)", "route": "cuda",
          "source": "nbody_tpu_torch/csrc/rate_probe.cu",
          "replaces": "tools/vpu_microbench.py:96",
          "launches": pr["launches"]["matmul_probe"],
-         "max_abs_err": pr["matmul_err"], "ms": mm["kernel_ms"],
-         "plain_ms": mm["plain_ms"],
+         "max_abs_err": mm[128]["max_abs_err"], "ms": mm[128]["ms"],
+         "plain_ms": mm[128]["plain_ms"],
          "timed_at": f"({mm_m}, {mm_s}) @ ({mm_s}, 128) x {mb.MATMUL_REPS} "
                      "fp32",
-         "ms_k4": pr["rates"]["matmul"][4]["kernel_ms"],
-         "library_ms_k4": pr["rates"]["matmul"][4]["matmul_ms"],
-         "library_tf32_ms": mm["matmul_tf32_ms"],
-         **p_bounds["matmul"], "library_ms": mm["matmul_ms"]},
+         "ms_k4": mm[4]["ms"], "plain_ms_k4": mm[4]["plain_ms"],
+         "library_ms_k4": mm[4]["library_ms"],
+         "max_abs_err_k4": mm[4]["max_abs_err"],
+         "bound_ms_k4": p_bounds[4]["bound_ms"],
+         "library_tf32_ms": pr["rates"]["matmul"][128]["matmul_tf32_ms"],
+         **p_bounds[128], "library_ms": mm[128]["library_ms"]},
     ]
     return kernels
 
@@ -1029,18 +1123,21 @@ def main() -> int:
     for line in log.splitlines():
         if re.search(r"Compiling entry|registers|spill", line):
             print("    " + line.strip())
-    # K1 and K3's kernels (the Newton-3 engine and K1's diagonal blocks):
-    # registers and spills from the ptxas report; a spill fails the run.
-    n3_ptxas = {cuda_build.kernel_label(k): v
-                for k, v in cuda_build.ptxas_report(log).items()
-                if re.search(r"newton3_kernel|diagonal_kernel", k)}
-    for label, rep in sorted(n3_ptxas.items()):
+    # K1 and K3's kernels (the Newton-3 engine and K1's diagonal blocks),
+    # K6's two entries and P's product: registers and spills from the ptxas
+    # report; a spill fails the run.
+    ptxas = {cuda_build.kernel_label(k): v
+             for k, v in cuda_build.ptxas_report(log).items()
+             if re.search(r"newton3_kernel|diagonal_kernel|near_field_kernel"
+                          r"|p2p_window_kernel|matmul_\w+_kernel", k)}
+    for label, rep in sorted(ptxas.items()):
         print(f"    {label}: {rep}")
         if rep.get("spill_stores") or rep.get("spill_loads"):
             raise AssertionError(f"{label} spills: {rep}")
-    if len(n3_ptxas) != 12:
-        raise AssertionError(f"Newton-3 kernels in the ptxas report: "
-                             f"{sorted(n3_ptxas)}")
+    n3_ptxas = {k: v for k, v in ptxas.items()
+                if re.match(r"newton3_kernel|diagonal_kernel", k)}
+    if len(n3_ptxas) != 12 or len(ptxas) != 19:
+        raise AssertionError(f"kernels in the ptxas report: {sorted(ptxas)}")
 
     gen = torch.Generator().manual_seed(SEED)
     default = GravityConfig()

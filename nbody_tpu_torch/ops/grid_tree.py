@@ -12,11 +12,13 @@ grid over Morton keys:
   leaf-centred local expansion (``"local"``, ``"local_leaf"``), or through
   the hierarchical downward sweep of ``ops/hier_far.py`` (``"hier"``).
 * **Near field**: leaf P2P over the (2k+1)^D neighbour cells with the
-  always-on d² < 1e-10 pair guard. With k ≥ 2 the sources are gathered once
-  per parent window and each of the 2^D child parities masks its own ring.
-  On CUDA tensors the near field runs the hand-written kernel K6
-  (``ops/cuda_p2p.py``, ``csrc/p2p_leaf.cu``); on CPU tensors its plain
-  version :func:`_point_mass_accel`.
+  always-on d² < 1e-10 pair guard, once per segment after the far field's
+  leaf batches. On CUDA tensors it is one launch of the hand-written kernel
+  K6 (``ops/cuda_p2p.near_field_cuda``, ``csrc/p2p_leaf.cu``), which reads
+  the tree's cells itself. Its plain version (CPU tensors, or
+  ``p2p_impl="plain"``) forms the windows of :func:`near_field_inputs` per
+  leaf batch: with k ≥ 2 the sources are gathered once per parent window
+  and each of the 2^D child parities masks its own ring.
 
 What differs from the JAX package, and why:
 
@@ -413,15 +415,16 @@ def _resolve_p2p_impl(p2p_impl: str, device: torch.device) -> str:
     return p2p_impl
 
 
-def _near_field_accel(tpos, src4, softening, p2p_impl):
-    """Leaf near field: tpos [B, C, D]; src4 [B, S, 4] packed (pos|0, mass),
-    mass already 0 for invalid sources → [B, C, D]. ``"plain"`` runs the
-    plain version; otherwise K6's wrapper, which on CUDA tensors runs K6 in
-    fp32 and casts back, as the JAX package's Pallas route does."""
-    from .cuda_p2p import p2p_leaf_cuda, p2p_plain
-    if p2p_impl == "plain":
-        return p2p_plain(tpos, src4, softening)
-    return p2p_leaf_cuda(tpos, src4, softening=softening)
+def _near_field_accel(tree, k, softening, p2p_impl, leaf0, nleaves,
+                      leaf_batch):
+    """Near field [N, D] of the bodies of leaves [leaf0, leaf0 + nleaves)
+    in sorted-body order, zero elsewhere. ``"plain"`` runs the windowed
+    plain version on any device; otherwise K6's wrapper, which on CUDA
+    tensors makes one launch in fp32 and casts back, as the JAX package's
+    Pallas route does."""
+    from .cuda_p2p import near_field_cuda, near_field_plain
+    fn = near_field_plain if p2p_impl == "plain" else near_field_cuda
+    return fn(tree, k, softening, leaf0, nleaves, leaf_batch)
 
 
 def near_field_inputs(tree: GridTree, k: int, leaf_ids_b, tb):
@@ -678,17 +681,6 @@ def near_batch_plan(tree: GridTree, k: int, leaf_batch: int = 512,
     return lb, my_leaves // lb
 
 
-def near_launches(tree: GridTree, k: int, leaf_batch: int = 512,
-                  num_segments: int = 1) -> int:
-    """Near-field calls (K6 launches on CUDA tensors) of one
-    :func:`grid_tree_accel_sorted` call per segment: one per batch in the
-    k = 1 layout, 2^D per batch (one per child parity) in the parent-shared
-    layout."""
-    lb, nb = near_batch_plan(tree, k, leaf_batch, num_segments)
-    nch = 1 << tree.dim
-    return nb * nch if (k >= 2 and lb % nch == 0) else nb
-
-
 def grid_tree_accel_sorted(tree: GridTree, k: int = 1,
                            softening: float = 0.0,
                            leaf_batch: int = 512,
@@ -704,11 +696,13 @@ def grid_tree_accel_sorted(tree: GridTree, k: int = 1,
     Far field per ``far_impl`` (``"hier"``: the sweep of ``ops/hier_far.py``
     once, then per leaf batch one order-3 evaluation plus the per-body
     inner shells, from pack tensors or, above ~1 GiB or with
-    ``hier_coeffs``, gathered per batch). Near field: leaf P2P over the
-    (2k+1)^D neighbourhood. The leaves are swept in batches of
-    ``leaf_batch`` (clamped as in the JAX package); ``num_segments`` > 1
-    evaluates only segment ``segment_index``'s leaves. ``_debug_skip``
-    containing ``"far"`` / ``"near"`` skips that part (phase timing).
+    ``hier_coeffs``, gathered per batch), over the leaves in batches of
+    ``leaf_batch`` (clamped as in the JAX package). Near field: leaf P2P
+    over the (2k+1)^D neighbourhood, one call for the segment's leaves
+    (:func:`_near_field_accel`), added to each body's far field after the
+    batches. ``num_segments`` > 1 evaluates only segment
+    ``segment_index``'s leaves. ``_debug_skip`` containing ``"far"`` /
+    ``"near"`` skips that part (phase timing).
     """
     dim, L, C = tree.dim, tree.leaf_level, tree.capacity
     dt, dev = tree.pos_sorted.dtype, tree.pos_sorted.device
@@ -719,7 +713,8 @@ def grid_tree_accel_sorted(tree: GridTree, k: int = 1,
     nch = 1 << dim
     twr = (C // 8 + 1) * 8
 
-    hier_on = far_impl == "hier" and "far" not in _debug_skip
+    far_on = "far" not in _debug_skip
+    hier_on = far_impl == "hier" and far_on
     hier_xs = ()
     hier_gather = False
     hier_tables = None
@@ -751,7 +746,7 @@ def grid_tree_accel_sorted(tree: GridTree, k: int = 1,
             if h_dq is not None:
                 hier_xs = hier_xs + (_chunk(h_dq),)
 
-    def one_batch(leaf_ids_b, extra):
+    def far_batch(leaf_ids_b, extra):
         B = leaf_ids_b.shape[0]
         tb, _, _ = _window_rows(tree, leaf_ids_b)  # [B, TWR, 4]
         tpos = tb[..., :dim]
@@ -791,31 +786,31 @@ def grid_tree_accel_sorted(tree: GridTree, k: int = 1,
                 else:
                     acc = acc + _point_mass_accel(
                         tpos, dp_b[..., :dim], dp_b[..., dim], 0.0)
-        elif "far" not in _debug_skip:
+        else:
             acc = acc + far_field_rings(tree, leaf_ids_b, tpos, k=k,
                                         multipole=multipole,
                                         far_impl=far_impl)
-
-        if "near" not in _debug_skip:
-            calls, shared = near_field_inputs(tree, k, leaf_ids_b, tb)
-            parts = [_near_field_accel(t, s, softening, p2p_impl)
-                     for t, s in calls]
-            acc = acc + (torch.stack(parts, dim=1).reshape(B, twr, dim)
-                         if shared else parts[0])
         return acc
 
-    ids = torch.arange(chunk0, chunk0 + my_leaves,
-                       device=dev).reshape(nb, leaf_batch)
-    accs = torch.empty((nb, leaf_batch, twr, dim), dtype=dt, device=dev)
-    for b in range(nb):
-        accs[b] = one_batch(ids[b], [x[b] for x in hier_xs])
-
-    # Window layout → sorted order is a gather: each body occupies exactly
-    # one window slot.
-    acc_flat = accs.reshape(-1, dim)
-    src = (tree.leaf_ids - chunk0) * twr + tree.window_slot
-    in_chunk = (tree.leaf_ids >= chunk0) & (tree.leaf_ids < chunk0 + my_leaves)
-    return acc_flat[torch.where(in_chunk, src, 0)] * in_chunk[:, None]
+    if far_on:
+        ids = torch.arange(chunk0, chunk0 + my_leaves,
+                           device=dev).reshape(nb, leaf_batch)
+        accs = torch.empty((nb, leaf_batch, twr, dim), dtype=dt, device=dev)
+        for b in range(nb):
+            accs[b] = far_batch(ids[b], [x[b] for x in hier_xs])
+        # Window layout → sorted order is a gather: each body occupies
+        # exactly one window slot.
+        acc_flat = accs.reshape(-1, dim)
+        src = (tree.leaf_ids - chunk0) * twr + tree.window_slot
+        in_chunk = ((tree.leaf_ids >= chunk0)
+                    & (tree.leaf_ids < chunk0 + my_leaves))
+        acc = acc_flat[torch.where(in_chunk, src, 0)] * in_chunk[:, None]
+    else:
+        acc = torch.zeros((tree.n, dim), dtype=dt, device=dev)
+    if "near" not in _debug_skip:
+        acc = acc + _near_field_accel(tree, k, softening, p2p_impl, chunk0,
+                                      my_leaves, leaf_batch)
+    return acc
 
 
 def theta_to_ring(theta: float) -> int:

@@ -7,9 +7,10 @@ pair kernel of the port: each op of the TPU tool (f32 mul, FMA, add, rsqrt,
 rsqrt³, approximate reciprocal, select; bf16 mul and FMA; bf16 rsqrt through
 f32) as a dependent loop on a register-resident (256, 1024) block, and the
 skinny (512, 2048) @ (2048, K) products, K ∈ {4, 128}, of the force
-reduction as a hand-written fp32 SIMT loop repeated 64 times. Beside the
-latter it times ``torch.matmul`` at the same shapes with TF32 off and on:
-the library's yardstick, used nowhere in the port.
+reduction, repeated 64 times, as a hand-written fp32 SIMT GEMM whose tiles
+stay in shared memory for all the repeats. Beside the latter it times
+``torch.matmul`` at the same shapes with TF32 off and on: the library's
+yardstick, used nowhere in the port.
 
 Every probe has its plain version in torch beside it (the same loop, for a
 small block and a few iterations). The wrappers run the plain version for
@@ -130,8 +131,9 @@ def matmul_probe_plain(a: torch.Tensor, b: torch.Tensor,
 
 
 def matmul_probe(a: torch.Tensor, b: torch.Tensor, reps: int) -> torch.Tensor:
-    """Σ over ``reps`` of a @ b in fp32: the SIMT kernel on CUDA tensors, the
-    plain version on CPU ones."""
+    """Σ over ``reps`` of a @ b in fp32: the SIMT GEMM on CUDA tensors (its
+    fp32 sums in a fixed order, so the result is deterministic), the plain
+    version on CPU ones."""
     if a.dtype != torch.float32 or b.dtype != torch.float32 or \
             a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"matmul_probe takes fp32 [M, S] @ [S, K], got "

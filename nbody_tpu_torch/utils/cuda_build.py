@@ -41,7 +41,8 @@ NVCC_FLAGS = (
 #: Launches per kernel of the library since the process started (or a
 #: caller reset them).
 LAUNCHES = {"precise": 0, "symmetric": 0, "sym_tile": 0, "fused_steps": 0,
-            "mxu": 0, "p2p_leaf": 0, "rate_probe": 0, "matmul_probe": 0}
+            "mxu": 0, "near_field": 0, "p2p_leaf": 0, "rate_probe": 0,
+            "matmul_probe": 0}
 
 _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -58,8 +59,11 @@ _SIGNATURES = {
                            _c_void_p), _c_int),
     "nbody_mxu_accel": ((_c_void_p, _c_void_p, _c_void_p, _c_int, _c_int,
                          _c_int, _c_int, _c_float, _c_void_p), _c_int),
+    "nbody_near_field": ((_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int,
+                          _c_int, _c_int, _c_int, _c_int, _c_float,
+                          _c_void_p), _c_int),
     "nbody_p2p_leaf": ((_c_void_p, _c_void_p, _c_void_p, _c_int, _c_int,
-                        _c_int, _c_int, _c_float, _c_int, _c_void_p), _c_int),
+                        _c_int, _c_int, _c_float, _c_void_p), _c_int),
     "nbody_rate_probe": ((_c_void_p, _c_int, _c_int, _c_int, _c_float,
                           _c_float, _c_void_p), _c_int),
     "nbody_matmul_probe": ((_c_void_p, _c_void_p, _c_void_p, _c_int, _c_int,

@@ -231,19 +231,28 @@ def test_debug_skip_splits_near_and_far():
                                             (3, 3, 3, 512), (2, 3, 2, 4)])
 def test_near_launches_counts_the_near_field_calls(monkeypatch, k, dim,
                                                    level, lb):
-    """near_launches (the K6 launches the chip run holds the path to) is
-    the number of near-field calls one evaluation makes."""
+    """The near field is one call per evaluation of a segment (one K6
+    launch on CUDA tensors, the count the chip run holds the path to), over
+    the segment's whole leaf range whatever the leaf batches; the segments'
+    parts add up to the whole near field."""
     _, _, tree = _trees(1500 if dim == 2 else 1200, dim, level, True)
     calls = []
     real = tg._near_field_accel
 
     def counting(*args):
-        calls.append(args[0].shape)
+        calls.append(args[4:6])  # (leaf0, nleaves)
         return real(*args)
 
     monkeypatch.setattr(tg, "_near_field_accel", counting)
-    tg.grid_tree_accel_sorted(tree, k=k, leaf_batch=lb, _debug_skip="far")
-    assert len(calls) == tg.near_launches(tree, k, leaf_batch=lb)
+    half = tree.num_leaf_cells // 2
+    parts = [tg.grid_tree_accel_sorted(tree, k=k, leaf_batch=lb,
+                                       num_segments=2, segment_index=si,
+                                       _debug_skip="far") for si in (0, 1)]
+    assert calls == [(0, half), (half, half)]
+    whole = tg.grid_tree_accel_sorted(tree, k=k, leaf_batch=lb,
+                                      _debug_skip="far")
+    assert calls[2:] == [(0, tree.num_leaf_cells)]
+    assert _acc_err(parts[0] + parts[1], whole.numpy()) < 1e-13
 
 
 def test_unported_layouts_and_p2p_impl_raise():

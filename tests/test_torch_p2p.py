@@ -1,20 +1,27 @@
 """K6's plain versions (nbody_tpu_torch.ops.cuda_p2p) against the JAX
-Pallas P2P kernel, run in interpret mode, and the tree's jnp near field.
+Pallas P2P kernel, run in interpret mode, and the tree's jnp near field:
+the window entry (``p2p_leaf_cuda``) and the path's near field
+(``near_field_plain``, the tree kernel's plain version).
 
-K6 itself runs only on the card: ``chip_smoke.py`` phases [11]-[12], and
-the ``cuda``-marked test below, which skips without one. Here the wrapper
-gets CPU tensors and takes its plain version.
+K6 itself runs only on the card: ``chip_smoke.py`` phases [11]-[12], the
+``cuda``-marked test below and those of ``tests/test_torch_near_field.py``,
+which skip without one. Here the wrappers get CPU tensors and take their
+plain versions.
 """
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from nbody_tpu.ops import grid_tree as jax_grid
 from nbody_tpu.ops.grid_tree import _point_mass_accel as jax_point_mass
 from nbody_tpu.ops.pallas_p2p import p2p_leaf_pallas
 from nbody_tpu_torch.ops import cuda_p2p
-from nbody_tpu_torch.ops.grid_tree import _point_mass_accel
+from nbody_tpu_torch.ops.grid_tree import (_point_mass_accel,
+                                           grid_tree_from_numpy)
 from nbody_tpu_torch.utils import cuda_build
 from nbody_tpu_torch.utils.accuracy import scale_normalized_error
 
@@ -153,3 +160,40 @@ def test_k6_kernel_matches_plain_on_card(cuda_device):
     err = float(scale_normalized_error(have.cpu().double().reshape(-1, 2),
                                        want.reshape(-1, 2)))
     assert err < 1e-5, err
+
+
+def _carried_tree(n, dim, level, seed):
+    """(JAX tree, the same tree carried into the port) over one f64 draw."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(1.0, 1e7, (n, dim))
+    mass = rng.uniform(1.0, 1e8, n)
+    mass[::9] = 0.0
+    cap = jax_grid.compute_capacity(jnp.asarray(pos), level)
+    jtree = jax_grid.build_grid_tree(jnp.asarray(pos), jnp.asarray(mass),
+                                     level, cap)
+    fields = {f.name: getattr(jtree, f.name)
+              for f in dataclasses.fields(jtree)}
+    return jtree, grid_tree_from_numpy(
+        {k: (tuple(np.asarray(x) for x in v) if isinstance(v, tuple)
+             else v if isinstance(v, int) else np.asarray(v))
+         for k, v in fields.items()}, device="cpu")
+
+
+# The plain version of K6's tree kernel (the path's near field) against the
+# JAX package's near field (its far field skipped), segment by segment, on
+# one tree in f64: both sum the same pairs, so only summation order
+# separates them.
+@pytest.mark.parametrize("segments", [1, 4])
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_near_field_plain_matches_jax(dim, k, segments):
+    n, level = (1500, 4) if dim == 2 else (1200, 2)
+    jtree, tree = _carried_tree(n, dim, level, seed=10 * k + dim)
+    nl = tree.num_leaf_cells // segments
+    for si in range(segments):
+        want = np.asarray(jax_grid.grid_tree_accel_sorted(
+            jtree, k=k, softening=1e-6, num_segments=segments,
+            segment_index=jnp.int32(si), _debug_skip="far"))
+        have = cuda_p2p.near_field_plain(tree, k, 1e-6, si * nl, nl)
+        assert have.dtype == torch.float64 and np.abs(want).max() > 0
+        err = float(scale_normalized_error(have, want))
+        assert err < 1e-12, err
