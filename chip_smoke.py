@@ -5,8 +5,9 @@
 
 Builds the CUDA kernels from ``nbody_tpu_torch/csrc`` (the brute-force
 kernels K1-K5, the tree near field K6 and the rate probe P; K1 and K3 on
-one Newton-3 tile engine, ``csrc/newton3_tile.cuh``; the ptxas report must
-show no spills in the engine, K6 or P's product), holds each against its
+one Newton-3 tile engine, ``csrc/newton3_tile.cuh``; K4 as one
+thread-block cluster; the ptxas report must show no spills in the engine,
+K4, K6 or P's product), holds each against its
 plain PyTorch version on the card, and drives the port's paths
 through the public entry points, each with the launch counts set to 0 just
 before it and read just after:
@@ -14,7 +15,7 @@ before it and read just after:
 * the main path, ``Simulation(method="brute")`` and the benchmark CLI at
   N = 2^20 (K2, K1);
 * the segmented driver at N = 2,000,000 2D (K1 on the diagonal, K3 across);
-* fused small-N stepping at N = 1000 2D (K4);
+* fused small-N stepping at N = 1000 2D (K4, one cluster of 16 or 8 SMs);
 * the matmul-form tile with Morton sorting at N = 262,144 2D (K5);
 * the Barnes-Hut grid tier, ``Simulation(method="barnes_hut")`` and the CLI
   ``-m b`` at N = 1e6 2D and 1e5 3D (K6's tree kernel, one launch per
@@ -71,10 +72,12 @@ SYM_TILE_PAIRS = [(100, 200, 2, False), (130, 170, 3, False),
     for coincident in (False, True)]
 # K4: the reference's small-N row (1000,BruteForce_CUDA,2, BASELINE.md:20)
 # and the largest N the kernel takes; per-step time by differencing runs of
-# K_LO and K_HI steps (tools/smalln_floor.py:106-116).
+# K_LO and K_HI steps (tools/smalln_floor.py:106-116). FUSED_SINGLE: steps
+# of one launch held bit for bit to as many one-step launches.
 SMALL_N = 1000
 FUSED_N = 2048
 FUSED_STEPS = 64
+FUSED_SINGLE = 8
 K_LO, K_HI = 256, 4096
 # K5: the JAX package's mxu test sizes and bounds (tests/test_pallas_brute.py
 # :109, :131): (N, sort, block_t, tol), at its block_t = 64 and once at the
@@ -190,8 +193,11 @@ def expect_launches(what, launches, want) -> None:
         raise AssertionError(f"{what}: launches {have} != {want}")
 
 
-def time_ms(fn, reps: int = 3) -> float:
-    """Median CUDA-event time of ``fn`` over ``reps`` runs after 1 warm-up."""
+def time_ms(fn, reps: int = 3, launches: int = 1) -> float:
+    """Median CUDA-event time of ``fn`` over ``reps`` runs after 1 warm-up.
+    With ``launches`` > 1 a run calls ``fn`` that many times back to back
+    and the time is one call's share: the card then stays busy while the
+    host enqueues the next call."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -199,10 +205,11 @@ def time_ms(fn, reps: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(launches):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
 
 
@@ -326,39 +333,84 @@ def check_states(label, have, want, v_tol=FORCE_TOL, x_tol=1e-5) -> float:
     return err
 
 
+def fused_checks(cb, systems, kw, cluster):
+    """K4 at the cluster size in use against its plain version on each
+    system and integrator, with two runs and K steps against K one-step
+    launches held bit for bit. Returns the errors and the states."""
+    errs, states = [], {}
+    for s in systems:
+        n, dim = s.positions.shape
+        label = f"C={cluster} N={n} {dim}D"
+        state = (s.positions, s.velocities, s.masses)
+        for integ in ("euler", "leapfrog"):
+            run = dict(kw, integrator=integ, num_steps=FUSED_STEPS)
+            got = cb.fused_smalln_simulate(*state, **run)
+            states[(n, integ)] = got
+            errs.append(check_states(f"{label} {integ}", got,
+                                     cb.fused_smalln_plain(*state, **run)))
+            again = cb.fused_smalln_simulate(*state, **run)
+            whole = cb.fused_smalln_simulate(
+                *state, **dict(run, num_steps=FUSED_SINGLE))
+            x, v = state[0], state[1]
+            for _ in range(FUSED_SINGLE):
+                x, v = cb.fused_smalln_simulate(
+                    x, v, state[2], **dict(run, num_steps=1))
+            same = all(map(torch.equal, got, again))
+            split = all(map(torch.equal, whole, (x, v)))
+            print(f"  {label} {integ}: two runs identical {same}; "
+                  f"{FUSED_SINGLE} steps in one launch identical to "
+                  f"{FUSED_SINGLE} one-step launches {split}")
+            if not (same and split):
+                raise AssertionError(f"K4 {label} {integ}: runs identical "
+                                     f"{same}, steps identical {split}")
+    return errs, states
+
+
 def phase_fused(cb, gen, dev) -> dict:
-    """[9] K4 against its plain version on the card, counted."""
+    """[9] K4 against its plain version on the card, counted; its runs
+    bit-identical, and K steps in one launch bit-identical to K launches of
+    one step (for leapfrog that holds the force K4 carries from a step into
+    the next to the force a new launch computes)."""
     from nbody_tpu_torch import GravityConfig
     from nbody_tpu_torch.state import plummer_system, random_system
     unit = GravityConfig(G=1.0, softening=0.1)
-    kw = {"g": unit.G, "softening": unit.softening, "dt": 1e-3,
-          "num_steps": FUSED_STEPS}
+    kw = {"g": unit.G, "softening": unit.softening, "dt": 1e-3}
     # Both sides run the same fp32 operations per step and differ only in
     # the order of each force sum (~1e-6 of the RMS force). 64 steps of
     # dt 1e-3 (t = 0.064, far below the crossing time of these clusters)
     # add those differences up without amplifying them, so velocities stay
     # well inside FORCE_TOL and positions, which move by ~1e-2, inside
     # 1e-5 of the largest coordinate.
+    cluster = cb.fused_cluster_size()
     print(f"[9] K4 fused small-N stepping vs its plain version on the card, "
-          f"G=1, softening=0.1, dt=1e-3, {FUSED_STEPS} steps")
+          f"G=1, softening=0.1, dt=1e-3, {FUSED_STEPS} steps; one cluster "
+          f"of C={cluster} CTAs")
     small = plummer_system(SMALL_N, 2, generator=gen, device=dev)
-    state = (small.positions, small.velocities, small.masses)
+    big = plummer_system(FUSED_N, 3, generator=gen, device=dev)
     reset_launches()
-    have = cb.fused_smalln_simulate(*state, integrator="leapfrog", **kw)
+    cb.fused_smalln_simulate(small.positions, small.velocities, small.masses,
+                             integrator="leapfrog", num_steps=FUSED_STEPS,
+                             **kw)
     torch.cuda.synchronize()
     launches = dict(counts())
-    expect_launches(f"fused_smalln_simulate N={SMALL_N} 2D", launches,
-                    {"fused_steps": 1})
-    check_states(f"N={SMALL_N} 2D leapfrog", have,
-                 cb.fused_smalln_plain(*state, integrator="leapfrog", **kw))
-    big = plummer_system(FUSED_N, 3, generator=gen, device=dev)
-    state = (big.positions, big.velocities, big.masses)
-    errs = [check_states(f"N={FUSED_N} 3D {integ}",
-                         cb.fused_smalln_simulate(*state, integrator=integ,
-                                                  **kw),
-                         cb.fused_smalln_plain(*state, integrator=integ,
-                                               **kw))
-            for integ in ("euler", "leapfrog")]
+    expect_launches(f"fused_smalln_simulate N={SMALL_N} 2D leapfrog",
+                    launches, {"fused_steps": 1})
+    errs, states = fused_checks(cb, (small, big), kw, cluster)
+    # The portable size, once, through the same wrapper: the cluster that a
+    # card placing no cluster of 16 takes (R = 2 at N = 2048). It adds the
+    # same chains in other groups, so its bits may differ from C = 16's.
+    if cluster == 16:
+        cb.set_fused_cluster_size(8)
+        try:
+            if cb.fused_cluster_size() != 8:
+                raise AssertionError("K4: C=8 was not taken")
+            more, portable = fused_checks(cb, (small, big), kw, 8)
+        finally:
+            cb.set_fused_cluster_size(0)
+        errs += more
+        same = all(torch.equal(a, b) for key in states
+                   for a, b in zip(states[key], portable[key]))
+        print(f"  C=8 states identical to C=16's: {same}")
     # Reference units, as tests/test_pallas_brute.py:216-223: nothing moves
     # at fp32 resolution, so both sides must agree to the last bit.
     ref = random_system(300, 2, generator=gen, device=dev)
@@ -373,7 +425,8 @@ def phase_fused(cb, gen, dev) -> dict:
         print(f"  N=300 2D reference units {integ}: identical {same}")
         if not same:
             raise AssertionError(f"reference-units {integ} states differ")
-    return {"launches": launches["fused_steps"], "max_abs_err": max(errs)}
+    return {"launches": launches["fused_steps"], "max_abs_err": max(errs),
+            "cluster": cluster}
 
 
 def phase_mxu(cb, gen, dev, default) -> dict:
@@ -595,7 +648,8 @@ def phase_bh(cb, gen, dev, default, smi) -> dict:
     from nbody_tpu_torch.ops import cuda_p2p, grid_tree as gt
     from nbody_tpu_torch.ops.hier_far import hier_far_coeffs
     from nbody_tpu_torch.state import random_system
-    from nbody_tpu_torch.utils.accuracy import accuracy_percentage
+    from nbody_tpu_torch.utils.accuracy import (accuracy_percentage,
+                                                scale_normalized_error)
     out = {"launches": 0}
 
     def bh_accuracy(label, got, pos, mass, rows, theta, tol):
@@ -628,7 +682,8 @@ def phase_bh(cb, gen, dev, default, smi) -> dict:
                                  f"< the JAX package's {jax_pct}% - "
                                  f"{BH_ROWS_SLACK}")
 
-    print("[12] Barnes-Hut grid tier: Simulation, CLI -m b, K6 vs plain")
+    print("[12] Barnes-Hut grid tier: Simulation, CLI -m b, K6 vs plain, "
+          "f64 'auto'")
     for n, dim in BH_SIM:
         bodies = random_system(
             n, dim, generator=torch.Generator().manual_seed(BH_SEED),
@@ -710,6 +765,24 @@ def phase_bh(cb, gen, dev, default, smi) -> dict:
                     "fp32; tol 2 fp32 floors)", full, plain.double(),
                     tol=max(1e-5, 2 * fp32_floor(plain.double(), K6_ULPS)))
         del t64, near64, full, plain
+
+    # p2p_impl="auto" (the default) on f64 bodies: the plain near field in
+    # f64, as the JAX package's "auto", and no K6 launch.
+    n, dim = BH_SIM[-1]
+    bodies = random_system(n, dim, generator=gen, device=dev)
+    pos64, mass64 = bodies.positions.double(), bodies.masses.double()
+    reset_launches()
+    auto = gt.barnes_hut_grid(pos64, mass64, default)
+    torch.cuda.synchronize()
+    expect_launches(f"barnes_hut_grid N={n} {dim}D f64, p2p_impl='auto'",
+                    counts(), {"near_field": 0, "p2p_leaf": 0})
+    plain = gt.barnes_hut_grid(pos64, mass64, default, p2p_impl="plain")
+    err = float(scale_normalized_error(auto, plain))
+    print(f"  N={n} {dim}D f64 'auto' vs 'plain': dtype {auto.dtype}, "
+          f"scale-normalized err {err:.3e} (tol 1e-12)")
+    if auto.dtype != torch.float64 or not err < 1e-12:
+        raise AssertionError(f"f64 'auto' evaluation: {auto.dtype}, {err}")
+    del bodies, pos64, mass64, auto, plain
 
     print(f"    times (CUDA events, 1 warm-up, median of 3), {smi}")
     times = {}
@@ -851,10 +924,26 @@ def phase_probe(cb, gen, dev, smi) -> dict:
           f"{rel:.3e} (tol {probe_tol(fma):g}), max abs diff {diff:.3e}")
     if not rel <= probe_tol(fma):
         raise AssertionError(f"P f32 fma x{PROBE_ITERS_TIMED}: {rel}")
-    fma_t = {"ms": time_ms(lambda: mb.rate_probe(fma, x, PROBE_ITERS_TIMED)),
+    # `ms` is one launch timed alone, as every kernel's; it takes in the
+    # host's time to enqueue the launch while the card idles. The share of
+    # one launch in a run of 10 leaves that out.
+    def fma_launch():
+        return mb.rate_probe(fma, x, PROBE_ITERS_TIMED)
+
+    fma_t = {"ms": time_ms(fma_launch),
+             "ms_run_of_10": time_ms(fma_launch, launches=10),
              "plain_ms": time_ms(lambda: mb.rate_probe_plain(
                  fma, x, PROBE_ITERS_TIMED), reps=1),
              "max_abs_err": diff}
+    flops = x.numel() * PROBE_ITERS_TIMED
+    fma_t["rate"] = flops / (fma_t["ms"] * 1e-3)
+    fma_t["rate_run_of_10"] = flops / (fma_t["ms_run_of_10"] * 1e-3)
+    print(f"  f32 fma x{PROBE_ITERS_TIMED}: {fma_t['ms']:.4f} ms timed alone "
+          f"({fma_t['rate']:.4e} FFMA/s), {fma_t['ms_run_of_10']:.4f} ms a "
+          f"launch in a run of 10 ({fma_t['rate_run_of_10']:.4e} FFMA/s); "
+          f"the tool's run at {PROBE_ITERS} iterations: f32 fma "
+          f"{rates['ops'][fma.name]['rate']:.4e}/s, f32 mul "
+          f"{rates['ops']['f32 mul']['rate']:.4e}/s")
     return {"launches": launches, "rates": rates, "fma": fma_t, "mm": mm}
 
 
@@ -947,19 +1036,24 @@ def phase_times(cb, gen, dev, default, smi) -> dict:
         key = f"{n}_{dim}d"
         t[f"K4_{key}"] = per_step_ms(lambda k: cb.fused_smalln_simulate(
             *state, num_steps=k, **kw))
+        t[f"K4_leapfrog_{key}"] = per_step_ms(
+            lambda k: cb.fused_smalln_simulate(
+                *state, num_steps=k, **dict(kw, integrator="leapfrog")))
         t[f"K4_plain_{key}"] = per_step_ms(lambda k: cb.fused_smalln_plain(
             *state, num_steps=k, **kw))
         t[f"stepped_{key}"] = per_step_ms(lambda k: simulate(
             s, forces, 1e-3, k, integrator="euler"))
-        print(f"    N={n} {dim}D Euler, ms per step (K={K_LO}..{K_HI}): K4 "
-              f"{t[f'K4_{key}']:.5f}, plain {t[f'K4_plain_{key}']:.5f}, "
-              f"stepped path (simulate + K2) {t[f'stepped_{key}']:.5f}")
+        print(f"    N={n} {dim}D, ms per step (K={K_LO}..{K_HI}): K4 Euler "
+              f"{t[f'K4_{key}']:.5f}, K4 leapfrog "
+              f"{t[f'K4_leapfrog_{key}']:.5f}; Euler plain "
+              f"{t[f'K4_plain_{key}']:.5f}, stepped path (simulate + K2) "
+              f"{t[f'stepped_{key}']:.5f}")
     t["big"] = big
     return t
 
 
 def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, pr,
-                 n3_ptxas) -> list:
+                 ptxas) -> list:
     """The kernels JSON line: every kernel with its launches on its path,
     its error against its plain version, its times and its bound."""
     from nbody_tpu_torch.tools import microbench as mb
@@ -978,6 +1072,8 @@ def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, pr,
         "K3": bound(17 * n * n, 2 * io_2d, n * n),
         "K4": bound(17 * SMALL_N * (SMALL_N - 1), SMALL_N * 64,
                     SMALL_N * (SMALL_N - 1)),
+        "K4_3d": bound(21 * FUSED_N * (FUSED_N - 1), FUSED_N * 64,
+                       FUSED_N * (FUSED_N - 1)),
         "K5": bound(26 * n2, io_2d, n2),
         "K6": bound((3 * bh["k6_dim"] + 6) * bh["k6_pairs"], bh["k6_bytes"],
                     bh["k6_pairs"]),
@@ -989,6 +1085,8 @@ def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, pr,
         p_bounds[kk] = bound(2 * mm_m * mm_s * kk * mb.MATMUL_REPS,
                              (mm_m * mm_s + mm_s * kk + mm_m * kk) * 4, 0)
     bh_t = bh["times"][BH_K6_TIMED]
+    n3_ptxas = {k: v for k, v in ptxas.items()
+                if re.match(r"newton3_kernel|diagonal_kernel", k)}
 
     timed_at = f"N={TIMED_N} 2D fp32"
     big = t["big"]
@@ -1030,10 +1128,16 @@ def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, pr,
          "ms": t[f"K4_{SMALL_N}_2d"], "plain_ms": t[f"K4_plain_{SMALL_N}_2d"],
          "timed_at": f"per Euler step, N={SMALL_N} 2D fp32",
          "stepped_ms": t[f"stepped_{SMALL_N}_2d"],
+         "ms_leapfrog": t[f"K4_leapfrog_{SMALL_N}_2d"],
          "ms_n2048_3d": t[f"K4_{FUSED_N}_3d"],
+         "ms_n2048_3d_leapfrog": t[f"K4_leapfrog_{FUSED_N}_3d"],
          "plain_ms_n2048_3d": t[f"K4_plain_{FUSED_N}_3d"],
-         "stepped_ms_n2048_3d": t[f"stepped_{FUSED_N}_3d"], **bounds["K4"],
-         "library_ms": None},
+         "stepped_ms_n2048_3d": t[f"stepped_{FUSED_N}_3d"],
+         "bound_ms_n2048_3d": bounds["K4_3d"]["bound_ms"],
+         "cluster_size": k4["cluster"],
+         "ptxas": {k: v for k, v in ptxas.items()
+                   if k.startswith("fused_steps")},
+         **bounds["K4"], "library_ms": None},
         {"name": "K5 mxu (block-centred matmul-form tile)", "route": "cuda",
          "source": "nbody_tpu_torch/csrc/mxu.cu",
          "replaces": "nbody_tpu/ops/pallas_brute.py:264",
@@ -1066,8 +1170,13 @@ def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, pr,
          "max_abs_err": pr["fma"]["max_abs_err"], "ms": pr["fma"]["ms"],
          "plain_ms": pr["fma"]["plain_ms"],
          "timed_at": f"f32 fma, (256, 1024) block, {PROBE_ITERS_TIMED} "
-                     "iterations",
+                     "iterations, one launch timed alone",
+         "ms_run_of_10": pr["fma"]["ms_run_of_10"],
          "rates_per_s": {k: v["rate"] for k, v in pr["rates"]["ops"].items()},
+         "fma_rate_per_s": pr["fma"]["rate"],
+         "fma_rate_per_s_run_of_10": pr["fma"]["rate_run_of_10"],
+         "ptxas": {k: v for k, v in ptxas.items()
+                   if k.startswith("rate_probe")},
          **p_bounds["rate"], "library_ms": None},
         {"name": "P matmul probe (skinny fp32 SIMT GEMM, tiles in shared "
                  "memory)", "route": "cuda",
@@ -1124,19 +1233,21 @@ def main() -> int:
         if re.search(r"Compiling entry|registers|spill", line):
             print("    " + line.strip())
     # K1 and K3's kernels (the Newton-3 engine and K1's diagonal blocks),
-    # K6's two entries and P's product: registers and spills from the ptxas
-    # report; a spill fails the run.
+    # K4's cluster kernels, K6's two entries and P's kernels: registers and
+    # spills from the ptxas report; a spill fails the run.
     ptxas = {cuda_build.kernel_label(k): v
              for k, v in cuda_build.ptxas_report(log).items()
-             if re.search(r"newton3_kernel|diagonal_kernel|near_field_kernel"
-                          r"|p2p_window_kernel|matmul_\w+_kernel", k)}
+             if re.search(r"newton3_kernel|diagonal_kernel|fused_steps_kernel"
+                          r"|near_field_kernel|p2p_window_kernel"
+                          r"|matmul_\w+_kernel|rate_probe_\w+", k)}
     for label, rep in sorted(ptxas.items()):
         print(f"    {label}: {rep}")
         if rep.get("spill_stores") or rep.get("spill_loads"):
             raise AssertionError(f"{label} spills: {rep}")
-    n3_ptxas = {k: v for k, v in ptxas.items()
-                if re.match(r"newton3_kernel|diagonal_kernel", k)}
-    if len(n3_ptxas) != 12 or len(ptxas) != 19:
+    families = {"newton3_kernel": 8, "diagonal_kernel": 4,
+                "fused_steps_kernel": 16, "rate_probe": 10}
+    found = {f: sum(k.startswith(f) for k in ptxas) for f in families}
+    if found != families or len(ptxas) != 45:
         raise AssertionError(f"kernels in the ptxas report: {sorted(ptxas)}")
 
     gen = torch.Generator().manual_seed(SEED)
@@ -1260,7 +1371,7 @@ def main() -> int:
     pr = phase_probe(cb, seeded(13), dev, smi)
 
     kernels = kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh,
-                           pr, n3_ptxas)
+                           pr, ptxas)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,8 @@
 // and returns contrib[t] = a[t][:D] - (x_t - c) * a[t][D], not scaled by G.
 // The guard is always on, on the UNSOFTENED d2 (d2 < 1e-10 -> u3 = 0): in
 // this form the huge softened self weight meets no cancelling zero
-// difference. block_t is semantic: the kernel centres on the same blocks as
+// difference. That is the tree near field's pair law, pair_u3_raw_guard of
+// pair_law.cuh. block_t is semantic: the kernel centres on the same blocks as
 // the JAX kernel. The centred sources are m*(x - c), computed once per source
 // per CTA when the source is staged; the JAX kernel forms m*x - c*m
 // (pallas_brute.py:291), which rounds at |m*x| instead of |m*(x - c)|.
@@ -63,16 +64,8 @@ mxu_accel_kernel(const float4* __restrict__ tgt,
 #pragma unroll
       for (int k = k0; k < k0 + kChain; ++k) {
         const float4 q = raw[k];
-        const float dx = q.x - p.x;
-        const float dy = q.y - p.y;
-        float d2 = dx * dx;
-        d2 = fmaf(dy, dy, d2);
-        if (DIM == 3) {
-          const float dz = q.z - p.z;
-          d2 = fmaf(dz, dz, d2);
-        }
-        const float u = rsqrtf(d2 + soft2);
-        const float u3 = d2 < kDist2Guard ? 0.0f : u * u * u;
+        const float u3 = pair_u3_raw_guard<DIM>(
+            q.x - p.x, q.y - p.y, DIM == 3 ? q.z - p.z : 0.0f, soft2);
         const float4 e = cen[k];
         b0 = fmaf(u3, e.x, b0);
         b1 = fmaf(u3, e.y, b1);

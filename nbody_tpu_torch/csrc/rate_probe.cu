@@ -7,14 +7,30 @@
 // (512, 2048) @ (2048, K) product accumulated in fp32, K in {4, 128}).
 //
 // nbody_rate_probe: every element of the block is one register-resident
-// value that goes through `iters` dependent applications of one op. One
-// thread per element (per bf16 pair for the bf16 ops, which run packed as
-// __nv_bfloat162, the way Hopper issues them). The count and the constants
-// are runtime arguments, so nvcc cannot fold the chain; the body is unrolled
-// 32 times so loop overhead stays a small share of the issue slots. 262,144
-// threads put ~62 warps on each of 132 SMs, enough to cover the latency of
-// one dependent chain per thread. What bounds it: the issue rate of the op's
-// pipe (FP32: 128 lanes/clk/SM; MUFU: 16 lanes/clk/SM).
+// value that goes through `iters` dependent applications of one op. A
+// thread carries kProbeElems elements (bf16 pairs for the bf16 ops, which
+// run packed as __nv_bfloat162, the way Hopper issues them) whose chains
+// interleave: one unrolled step applies the op to each of them in turn. The
+// count and the constants are runtime arguments, so nvcc cannot fold the
+// chain; the body is unrolled kProbeUnroll times so loop overhead stays a
+// small share of the issue slots.
+// What bounded the FMA (cuobjdump -sass of the kernel before this one, on
+// an H100): one dependent chain a thread, compiled as FFMA R8, R8, R4, R5
+// with c and d hoisted into a register pair by one LDC.64, so every FFMA
+// read three registers from the register banks (FMUL reads one register
+// and a uniform register: FMUL R7, R7, UR7). The chain's next FFMA comes
+// from the same warp only after the previous one's latency, so the
+// operand-reuse cache could not supply c and d either, and the FMA ran
+// well under the FMUL rate: 1.44e13 FFMA/s against 2.33e13 at 16,384
+// iterations, 1.60e13 against 3.00e13 at 2^20. With kProbeElems chains a thread the
+// FFMAs of one unrolled step are independent and issue back to back as
+// FFMA R12, R12, R4.reuse, R5.reuse: c and d come from the reuse cache and
+// only the chain's own register from a bank. The FMA then issues at the
+// FMUL rate (3.13e13/s at 2^20 iterations); the other ops keep theirs
+// (4 chains of 256 threads measured best of 2, 4 and 8 chains and of 128,
+// 256 and 512 threads: 8 chains halved the MUFU and bf16 rates).
+// What bounds it: the issue rate of the op's pipe (FP32: 128 lanes/clk/SM;
+// MUFU: 16 lanes/clk/SM).
 //
 // nbody_matmul_probe: the skinny product as an SIMT GEMM whose tiles stay
 // in shared memory, as the TPU kernel keeps A and B in VMEM for the whole
@@ -65,6 +81,7 @@ enum ProbeOp {
 
 constexpr int kProbeThreads = 256;
 constexpr int kProbeUnroll = 32;
+constexpr int kProbeElems = 4;  // a thread's interleaved chains
 
 __device__ __forceinline__ float rcp_approx(float x) {
   float y;
@@ -99,43 +116,61 @@ __device__ __forceinline__ __nv_bfloat162 bf16_op(__nv_bfloat162 x,
   return __floats2bfloat162_rn(rsqrtf(f.x), rsqrtf(f.y));
 }
 
-template <int OP>
-__global__ void __launch_bounds__(kProbeThreads)
-rate_probe_f32(float* __restrict__ x, int n, int iters, float c, float d) {
-  const int i = blockIdx.x * kProbeThreads + threadIdx.x;
-  if (i >= n) return;
-  float v = x[i];
+// Element e of CTA b's thread t is b * kProbeThreads * kProbeElems +
+// e * kProbeThreads + t: each of a warp's loads and stores is contiguous.
+template <typename T, typename Step>
+__device__ __forceinline__ void probe_chains(T* __restrict__ x, int n,
+                                             int iters, T fill, Step step) {
+  const int base = blockIdx.x * kProbeThreads * kProbeElems + threadIdx.x;
+  T v[kProbeElems];
+#pragma unroll
+  for (int e = 0; e < kProbeElems; ++e) {
+    const int i = base + e * kProbeThreads;
+    v[e] = i < n ? x[i] : fill;
+  }
   int it = 0;
   for (; it + kProbeUnroll <= iters; it += kProbeUnroll) {
 #pragma unroll
-    for (int u = 0; u < kProbeUnroll; ++u) v = f32_op<OP>(v, c, d);
+    for (int u = 0; u < kProbeUnroll; ++u) {
+#pragma unroll
+      for (int e = 0; e < kProbeElems; ++e) v[e] = step(v[e]);
+    }
   }
-  for (; it < iters; ++it) v = f32_op<OP>(v, c, d);
-  x[i] = v;
+  for (; it < iters; ++it) {
+#pragma unroll
+    for (int e = 0; e < kProbeElems; ++e) v[e] = step(v[e]);
+  }
+#pragma unroll
+  for (int e = 0; e < kProbeElems; ++e) {
+    const int i = base + e * kProbeThreads;
+    if (i < n) x[i] = v[e];
+  }
+}
+
+template <int OP>
+__global__ void __launch_bounds__(kProbeThreads)
+rate_probe_f32(float* __restrict__ x, int n, int iters, float c, float d) {
+  probe_chains(x, n, iters, 1.0f,
+               [=](float v) { return f32_op<OP>(v, c, d); });
 }
 
 template <int OP>
 __global__ void __launch_bounds__(kProbeThreads)
 rate_probe_bf16(__nv_bfloat162* __restrict__ x, int npairs, int iters,
                 float c, float d) {
-  const int i = blockIdx.x * kProbeThreads + threadIdx.x;
-  if (i >= npairs) return;
   const __nv_bfloat162 c2 = __float2bfloat162_rn(c);
   const __nv_bfloat162 d2 = __float2bfloat162_rn(d);
-  __nv_bfloat162 v = x[i];
-  int it = 0;
-  for (; it + kProbeUnroll <= iters; it += kProbeUnroll) {
-#pragma unroll
-    for (int u = 0; u < kProbeUnroll; ++u) v = bf16_op<OP>(v, c2, d2);
-  }
-  for (; it < iters; ++it) v = bf16_op<OP>(v, c2, d2);
-  x[i] = v;
+  probe_chains(x, npairs, iters, __float2bfloat162_rn(1.0f),
+               [=](__nv_bfloat162 v) { return bf16_op<OP>(v, c2, d2); });
 }
+
+constexpr int kProbeBlockElems = kProbeThreads * kProbeElems;
 
 template <int OP>
 void launch_f32(void* x, int n, int iters, float c, float d,
                 cudaStream_t st) {
-  const unsigned grid = (unsigned)((n + kProbeThreads - 1) / kProbeThreads);
+  const unsigned grid =
+      (unsigned)((n + kProbeBlockElems - 1) / kProbeBlockElems);
   rate_probe_f32<OP><<<grid, kProbeThreads, 0, st>>>(
       static_cast<float*>(x), n, iters, c, d);
 }
@@ -145,7 +180,7 @@ void launch_bf16(void* x, int n, int iters, float c, float d,
                  cudaStream_t st) {
   const int npairs = n / 2;
   const unsigned grid =
-      (unsigned)((npairs + kProbeThreads - 1) / kProbeThreads);
+      (unsigned)((npairs + kProbeBlockElems - 1) / kProbeBlockElems);
   rate_probe_bf16<OP><<<grid, kProbeThreads, 0, st>>>(
       static_cast<__nv_bfloat162*>(x), npairs, iters, c, d);
 }

@@ -21,8 +21,11 @@ plain PyTorch version beside it:
   FP32 issue (12 instructions a pair in 2D, 16 in 3D, and a MUFU rsqrt),
   not bytes. K1's diagonal blocks are a second launch of the same call.
 * K4 (``_kernel_fused_steps``): K Euler/leapfrog steps of N ≤ 2048 bodies in
-  one launch, :func:`fused_smalln_simulate`, ``csrc/fused_steps.cu``; plain
-  version :func:`fused_smalln_plain`.
+  one launch, :func:`fused_smalln_simulate`, ``csrc/fused_steps.cu``: one
+  thread-block cluster of :func:`fused_cluster_size` CTAs, each owning a
+  slice of the bodies and holding every position, exchanged through
+  distributed shared memory once a force evaluation; plain version
+  :func:`fused_smalln_plain`.
 * K5 ``"mxu"`` (``_kernel_mxu``): the one-sided tile in block-centred
   matmul form, ``csrc/mxu.cu``; plain version :func:`mxu_accel_plain`.
 
@@ -38,6 +41,7 @@ guards.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -518,8 +522,12 @@ def brute_force_cuda_segmented(positions, masses,
 
 # --- K4: fused small-N stepping ----------------------------------------------
 
-#: Largest N K4 takes: the whole state in one CTA (``FUSED_SMALLN_MAX``).
+#: Largest N K4 takes: every CTA of its cluster holds all positions, twice,
+#: in shared memory (``kFusedMax``).
 FUSED_SMALLN_MAX = 2048
+#: What :func:`set_fused_cluster_size` takes: 0 (the card decides), or
+#: ``kFusedCluster`` and ``kFusedPortableCluster`` of ``fused_steps.cu``.
+FUSED_CLUSTER_SIZES = (0, 16, 8)
 _INTEGRATORS = ("euler", "leapfrog")
 
 
@@ -554,15 +562,41 @@ def fused_smalln_plain(positions, velocities, masses, *, dt, num_steps,
     return pos, vel
 
 
+def fused_cluster_size() -> int:
+    """CTAs (SMs) of K4's thread-block cluster on the current card: 16
+    where the card places such a cluster with the kernel's shared memory,
+    else the portable 8, or the size :func:`set_fused_cluster_size` set.
+    Needs a card; raises if the card's query fails."""
+    c = ctypes.c_int(0)
+    cuda_build.check(
+        cuda_build.load_library().nbody_fused_cluster_size(ctypes.byref(c)),
+        "fused_steps cluster size query")
+    return c.value
+
+
+def set_fused_cluster_size(c: int) -> None:
+    """Makes later K4 launches take a cluster of ``c`` CTAs: 16 or the
+    portable 8, or 0 for the size the card's occupancy decides. Needs a
+    card."""
+    if c not in FUSED_CLUSTER_SIZES:
+        raise ValueError(f"cluster size must be one of {FUSED_CLUSTER_SIZES}, "
+                         f"got {c!r}")
+    cuda_build.check(cuda_build.load_library().nbody_fused_force_cluster(c),
+                     "fused_steps cluster size")
+
+
 def fused_smalln_simulate(positions, velocities, masses, *, dt,
                           num_steps: int, g=1.0, softening=0.0,
                           integrator: str = "euler", guard=None):
     """``num_steps`` small-N integration steps in ONE launch → (pos, vel).
 
     Counterpart of ``fused_smalln_simulate``: exact all-pairs accelerations
-    scaled by ``g``, Euler (v += g·a·dt; x += v·dt) or KDK leapfrog with two
-    force evaluations per step. N ≤ ``FUSED_SMALLN_MAX``. K4 on CUDA
-    tensors, :func:`fused_smalln_plain` on CPU tensors; fp32.
+    scaled by ``g``, Euler (v += g·a·dt; x += v·dt) or KDK leapfrog.
+    N ≤ ``FUSED_SMALLN_MAX``. K4 on CUDA tensors, :func:`fused_smalln_plain`
+    on CPU tensors; fp32. Where the JAX kernel evaluates the force twice a
+    leapfrog step, K4 carries the force at the end of a step into the next
+    (the same positions and code, so the same result): one sweep a step and
+    one before the first.
     """
     n, dim = positions.shape
     if n > FUSED_SMALLN_MAX:

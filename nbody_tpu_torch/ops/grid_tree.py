@@ -13,10 +13,11 @@ grid over Morton keys:
   the hierarchical downward sweep of ``ops/hier_far.py`` (``"hier"``).
 * **Near field**: leaf P2P over the (2k+1)^D neighbour cells with the
   always-on d² < 1e-10 pair guard, once per segment after the far field's
-  leaf batches. On CUDA tensors it is one launch of the hand-written kernel
-  K6 (``ops/cuda_p2p.near_field_cuda``, ``csrc/p2p_leaf.cu``), which reads
-  the tree's cells itself. Its plain version (CPU tensors, or
-  ``p2p_impl="plain"``) forms the windows of :func:`near_field_inputs` per
+  leaf batches. For fp32 bodies on the card it is one launch of the
+  hand-written kernel K6 (``ops/cuda_p2p.near_field_cuda``,
+  ``csrc/p2p_leaf.cu``), which reads the tree's cells itself. Its plain
+  version (CPU tensors, trees of another dtype under ``p2p_impl="auto"``,
+  or ``p2p_impl="plain"``) forms the windows of :func:`near_field_inputs` per
   leaf batch: with k ≥ 2 the sources are gathered once per parent window
   and each of the 2^D child parities masks its own ring.
 
@@ -402,10 +403,8 @@ P2P_IMPLS = ("auto", "plain", "cuda")
 
 def _resolve_p2p_impl(p2p_impl: str, device: torch.device) -> str:
     """Check ``p2p_impl`` against the tree's device and return it.
-    ``"cuda"`` for CPU tensors raises. ``"auto"`` stays ``"auto"``: K6's
-    wrapper takes the kernel for CUDA tensors and its plain version for CPU
-    tensors. (The JAX package's ``"auto"`` means its jnp path; that default
-    rests on a TPU measurement that says nothing about this card.)"""
+    ``"cuda"`` for CPU tensors raises. ``"auto"`` stays ``"auto"``;
+    :func:`_near_field_accel` resolves it by the tree's dtype."""
     if p2p_impl not in P2P_IMPLS:
         raise ValueError(f"p2p_impl must be one of {P2P_IMPLS}, "
                          f"got {p2p_impl!r}")
@@ -418,12 +417,21 @@ def _resolve_p2p_impl(p2p_impl: str, device: torch.device) -> str:
 def _near_field_accel(tree, k, softening, p2p_impl, leaf0, nleaves,
                       leaf_batch):
     """Near field [N, D] of the bodies of leaves [leaf0, leaf0 + nleaves)
-    in sorted-body order, zero elsewhere. ``"plain"`` runs the windowed
-    plain version on any device; otherwise K6's wrapper, which on CUDA
-    tensors makes one launch in fp32 and casts back, as the JAX package's
-    Pallas route does."""
-    from .cuda_p2p import near_field_cuda, near_field_plain
-    fn = near_field_plain if p2p_impl == "plain" else near_field_cuda
+    in sorted-body order, zero elsewhere.
+
+    ``"cuda"``: K6's wrapper, which on CUDA tensors makes one launch in
+    fp32 and casts back to the tree's dtype, whatever that dtype is (the
+    JAX package's explicit ``"pallas"`` is its fp32 kernel too).
+    ``"auto"``: K6's wrapper for an fp32 tree (the kernel on the card, the
+    plain version on the CPU); any other tree takes the plain near field in
+    its own dtype, as the JAX package's ``"auto"`` (its jnp path) does, so
+    an f64 run keeps f64 near pairs. ``"plain"``: the windowed plain
+    version on any device.
+    """
+    from . import cuda_p2p
+    kernel = p2p_impl == "cuda" or (
+        p2p_impl == "auto" and tree.pos_sorted.dtype == torch.float32)
+    fn = cuda_p2p.near_field_cuda if kernel else cuda_p2p.near_field_plain
     return fn(tree, k, softening, leaf0, nleaves, leaf_batch)
 
 
@@ -859,7 +867,8 @@ def barnes_hut_grid(
     Counterpart of ``nbody_tpu.ops.grid_tree.barnes_hut_grid`` with the
     same parameters and defaults (θ from ``config``, quadrupole sources,
     far field and batching from :func:`resolve_bh_params`). ``p2p_impl``:
-    ``"auto"`` (K6 on CUDA tensors, plain on CPU ones), ``"cuda"`` or
+    ``"auto"`` (K6 for fp32 bodies on the card, else the plain near field
+    in the bodies' dtype), ``"cuda"`` (K6 in fp32 on any dtype) or
     ``"plain"``. ``layout="dense"`` or ``"auto"`` on a quasi-uniform input;
     the sparse grid is not ported yet.
     """

@@ -57,6 +57,8 @@ _SIGNATURES = {
     "nbody_fused_steps": ((_c_void_p, _c_void_p, _c_int, _c_int, _c_int,
                            _c_float, _c_float, _c_float, _c_int, _c_int,
                            _c_void_p), _c_int),
+    "nbody_fused_cluster_size": ((ctypes.POINTER(_c_int),), _c_int),
+    "nbody_fused_force_cluster": ((_c_int,), _c_int),
     "nbody_mxu_accel": ((_c_void_p, _c_void_p, _c_void_p, _c_int, _c_int,
                          _c_int, _c_int, _c_float, _c_void_p), _c_int),
     "nbody_near_field": ((_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int,

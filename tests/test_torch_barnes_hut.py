@@ -28,6 +28,11 @@ from nbody_tpu_torch.utils.accuracy import (accuracy_percentage,
                                             scale_normalized_error)
 
 
+# Several test processes share the machine's cores: a few torch threads
+# each keep them from oversubscribing it.
+torch.set_num_threads(2)
+
+
 def _bodies(n, dim, seed, dtype=np.float64):
     rng = np.random.default_rng(seed)
     return (rng.uniform(1.0, 1e7, (n, dim)).astype(dtype),

@@ -12,6 +12,11 @@ from nbody_tpu_torch.config import GravityConfig as TGravity
 from nbody_tpu_torch.utils.accuracy import scale_normalized_error
 
 
+# Several test processes share the machine's cores: a few torch threads
+# each keep them from oversubscribing it.
+torch.set_num_threads(2)
+
+
 def _bodies(n, dim, dtype, seed=0):
     """Reference-distribution bodies (utils.h:113-115) from numpy."""
     rng = np.random.default_rng(seed)

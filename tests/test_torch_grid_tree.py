@@ -10,6 +10,7 @@ the same operations, so only summation order separates them.
 
 import dataclasses
 import functools
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +24,11 @@ from nbody_tpu_torch.ops import grid_tree as tg
 from nbody_tpu_torch.ops.hier_far import hier_far_coeffs
 from nbody_tpu_torch.utils import cuda_build
 from nbody_tpu_torch.utils.accuracy import scale_normalized_error
+
+
+# Several test processes share the machine's cores: a few torch threads
+# each keep them from oversubscribing it.
+torch.set_num_threads(2)
 
 _INT_FIELDS = ("order", "leaf_ids", "cell_start", "cell_count", "window_slot")
 _FLOAT_FIELDS = ("lo", "cell_sizes", "pos_sorted", "mass_sorted",
@@ -278,8 +284,8 @@ def test_unported_layouts_and_p2p_impl_raise():
         tg.barnes_hut_grid(tp, tm, p2p_impl="cuda")
     with pytest.raises(ValueError, match="p2p_impl"):
         tg.barnes_hut_grid(tp, tm, p2p_impl="pallas")
-    # "auto" is left to K6's wrapper, which takes the plain version for CPU
-    # tensors: no launch, the plain near field's values.
+    # "auto" on this f64 tree takes the plain near field: no launch, the
+    # plain near field's values.
     assert tg._resolve_p2p_impl("auto", torch.device("cpu")) == "auto"
     assert tg._resolve_p2p_impl("auto", torch.device("cuda")) == "auto"
     assert tg._resolve_p2p_impl("plain", torch.device("cuda")) == "plain"
@@ -287,6 +293,31 @@ def test_unported_layouts_and_p2p_impl_raise():
     auto = tg.barnes_hut_grid(tp, tm, p2p_impl="auto")
     assert cuda_build.LAUNCHES == before
     assert torch.equal(auto, tg.barnes_hut_grid(tp, tm, p2p_impl="plain"))
+
+
+@pytest.mark.parametrize("p2p_impl,dtype,route", [
+    ("auto", torch.float64, "plain"), ("auto", torch.float32, "K6"),
+    ("cuda", torch.float64, "K6")])
+def test_near_field_route_follows_the_trees_dtype(monkeypatch, p2p_impl,
+                                                  dtype, route):
+    """"auto" takes K6's wrapper only for an fp32 tree; any other tree gets
+    the plain near field in its own dtype, as the JAX package's "auto" (its
+    jnp path) does. An explicit "cuda" is K6, which computes in fp32, on any
+    dtype."""
+    from nbody_tpu_torch.ops import cuda_p2p
+    calls = []
+
+    def recorder(name):
+        def near_field(tree, k, softening, leaf0, nleaves, leaf_batch):
+            calls.append((name, k, softening, leaf0, nleaves, leaf_batch))
+            return name
+        return near_field
+
+    monkeypatch.setattr(cuda_p2p, "near_field_cuda", recorder("K6"))
+    monkeypatch.setattr(cuda_p2p, "near_field_plain", recorder("plain"))
+    tree = types.SimpleNamespace(pos_sorted=torch.zeros((8, 3), dtype=dtype))
+    assert tg._near_field_accel(tree, 2, 0.5, p2p_impl, 4, 16, 64) == route
+    assert calls == [(route, 2, 0.5, 4, 16, 64)]
 
 
 def test_barnes_hut_grid_is_build_evaluate_unsort_scale():

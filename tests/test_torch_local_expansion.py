@@ -26,6 +26,11 @@ from nbody_tpu_torch.ops.brute_force import brute_force_direct
 from nbody_tpu_torch.utils.accuracy import scale_normalized_error
 
 
+# Several test processes share the machine's cores: a few torch threads
+# each keep them from oversubscribing it.
+torch.set_num_threads(2)
+
+
 def _close(have, want, rtol=1e-12):
     want = np.asarray(want)
     if want.size == 0:

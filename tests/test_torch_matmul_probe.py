@@ -22,6 +22,10 @@ from nbody_tpu_torch.tools import microbench as mb
 from nbody_tpu_torch.utils import cuda_build
 from nbody_tpu_torch.utils.accuracy import scale_normalized_error
 
+# Several test processes share the machine's cores: a few torch threads
+# each keep them from oversubscribing it.
+torch.set_num_threads(2)
+
 SOURCE = (Path(cuda_build.__file__).resolve().parent.parent / "csrc"
           / "rate_probe.cu").read_text()
 
@@ -126,9 +130,13 @@ def _emulate(a, b, reps):
     return out
 
 
-@pytest.mark.parametrize("m,s,kk", [(512, 2048, 4), (512, 2048, 128),
+@pytest.mark.parametrize("m,s,kk", [(8, 2048, 8), (64, 2048, 256),
                                     (37, 2500, 7), (37, 2500, 150)])
 def test_tiling_emulation_matches_plain(m, s, kk):
+    """Whole tiles two each way, with every S-slice rank on one whole slice
+    (the probe's own (512, 2048, K) has more of the same tiles; it runs on
+    the card, in the ``cuda`` test below and ``chip_smoke.py`` [13]), and
+    ragged M, S and K past every edge, for both kernels."""
     rng = np.random.default_rng(m + s + kk)
     a = torch.from_numpy(rng.uniform(0, 1, (m, s)))
     b = torch.from_numpy(rng.uniform(0, 1, (s, kk)))

@@ -27,6 +27,11 @@ from nbody_tpu_torch.ops.keys import _spread2, _spread3
 from nbody_tpu_torch.utils import cuda_build
 from nbody_tpu_torch.utils.accuracy import scale_normalized_error
 
+
+# Several test processes share the machine's cores: a few torch threads
+# each keep them from oversubscribing it.
+torch.set_num_threads(2)
+
 SOURCE = (Path(cuda_build.__file__).resolve().parent.parent / "csrc"
           / "p2p_leaf.cu").read_text()
 
@@ -289,10 +294,33 @@ def test_near_field_kernel_matches_plain_on_card(cuda_device, dim, level, k,
         assert bool(torch.isfinite(have).all()) and err < tol, (err, tol)
 
 
+@pytest.mark.cuda
+def test_auto_on_an_f64_tree_is_the_f64_plain_near_field(cuda_device):
+    """barnes_hut_grid(p2p_impl="auto") on f64 bodies on the card launches
+    no K6 and matches the f64 plain near field's run to 1e-12."""
+    rng = np.random.default_rng(6)
+    pos = torch.from_numpy(rng.uniform(0.0, 1e7, (30_000, 3))).to(cuda_device)
+    mass = torch.from_numpy(rng.uniform(1.0, 1e8, 30_000)).to(cuda_device)
+    before = cuda_build.LAUNCHES["near_field"]
+    auto = tg.barnes_hut_grid(pos, mass, p2p_impl="auto")
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["near_field"] == before
+    assert auto.dtype == torch.float64
+    plain = tg.barnes_hut_grid(pos, mass, p2p_impl="plain")
+    assert float(scale_normalized_error(auto, plain)) < 1e-12
+
+
 @pytest.mark.parametrize("name,source", [("nbody_near_field", "p2p_leaf.cu"),
                                          ("nbody_p2p_leaf", "p2p_leaf.cu"),
                                          ("nbody_matmul_probe",
-                                          "rate_probe.cu")])
+                                          "rate_probe.cu"),
+                                         ("nbody_rate_probe", "rate_probe.cu"),
+                                         ("nbody_fused_steps",
+                                          "fused_steps.cu"),
+                                         ("nbody_fused_cluster_size",
+                                          "fused_steps.cu"),
+                                         ("nbody_fused_force_cluster",
+                                          "fused_steps.cu")])
 def test_c_abi_arity_matches_the_ctypes_signatures(name, source):
     text = (Path(cuda_build.SOURCE_DIR) / source).read_text()
     m = re.search(rf'extern "C" int {name}\(([^)]*)\)', text)

@@ -26,6 +26,11 @@ from nbody_tpu_torch.utils import cuda_build
 from nbody_tpu_torch.utils.accuracy import scale_normalized_error
 
 
+# Several test processes share the machine's cores: a few torch threads
+# each keep them from oversubscribing it.
+torch.set_num_threads(2)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():

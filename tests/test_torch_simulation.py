@@ -15,6 +15,11 @@ from nbody_tpu_torch.config import GravityConfig as TGravity
 from nbody_tpu_torch.simulation import Simulation, available_methods
 from nbody_tpu_torch.state import system_from_numpy
 
+
+# Several test processes share the machine's cores: a few torch threads
+# each keep them from oversubscribing it.
+torch.set_num_threads(2)
+
 CFG = {"G": 1.0, "softening": 0.1}
 
 

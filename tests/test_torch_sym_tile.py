@@ -20,6 +20,11 @@ from nbody_tpu_torch.ops import cuda_brute as cb
 from nbody_tpu_torch.utils.accuracy import scale_normalized_error
 
 
+# Several test processes share the machine's cores: a few torch threads
+# each keep them from oversubscribing it.
+torch.set_num_threads(2)
+
+
 def _bodies(n, dim, seed=0):
     rng = np.random.default_rng(seed)
     pos = rng.uniform(1.0, 1e7, size=(n, dim)).astype(np.float32)
