@@ -21,7 +21,15 @@ before it and read just after:
   ``-m b`` at N = 1e6 2D and 1e5 3D (K6's tree kernel, one launch per
   evaluated segment), with its accuracy against the f64 oracle, K6 against
   the plain near field on one tree, and the phase times;
-* the rate-probe tool ``nbody_tpu_torch.tools.microbench`` (P).
+* the rate-probe tool ``nbody_tpu_torch.tools.microbench`` (P);
+* the FMM tier at order 8, ``Simulation(method="fmm")`` at N = 1e6 2D, the
+  CLI ``-m f`` at 1e5 3D and one evaluation at 4M 3D (K6, one launch per
+  fp32 evaluation), with TF32 refused, its f64 runs against the f64 oracle,
+  its fp32 runs against the f64 FMM, its near phase bit for bit against
+  Barnes-Hut theta = 0.5's, and the phase times;
+* the sparse grid on a clustered Plummer 1e5 3D input (Barnes-Hut and FMM
+  under ``layout="auto"``, no K6 launch) against the f64 oracle, and the
+  sparse Barnes-Hut layout beside the dense one at 1e6 2D.
 
 It times every kernel against its plain version and gives each its bound
 (the least time the card could take for the same work). Every check raises on
@@ -128,6 +136,47 @@ BH_ROWS = 4096
 BH_ACCURACY_3D = 99.0
 BH_JAX_ROWS_PCT = {(1_000_000, 2): 99.0478515625, (100_000, 3): 99.462890625}
 BH_ROWS_SLACK = 4 * 100.0 / BH_ROWS
+# The FMM tier at the reference's FMM rows (BASELINE.md:43-50, uniform
+# random_system) and its "FMM p=8 full pipeline, N=4M" configuration
+# (BASELINE.md:72), order FMM_ORDER = 8 (config.py): Simulation (1 leapfrog
+# step) and the CLI -m f; one evaluation at 4M 3D; f64 runs held to the JAX
+# package's order-8 gate against the f64 oracle (tests/test_fmm.py:85-93);
+# timed shapes (N, dim) beside the reference's CPU seconds.
+FMM_SIM = (1_000_000, 2)
+FMM_CLI = (100_000, 3)
+FMM_BIG = (4_000_000, 3)
+FMM_SEED = 1400
+FMM_GATE = 1e-4
+FMM_TIMED = [(100_000, 2), (100_000, 3), (1_000_000, 2), FMM_BIG]
+FMM_REFERENCE_S = {
+    (100_000, 2): "FMM_Sequential 0.555 s",
+    (100_000, 3): "FMM_Sequential 1.851 s, FMM_OpenMP 0.409 s",
+    (1_000_000, 2): "FMM_Sequential 12.25 s",
+    FMM_BIG: "no time: the 'FMM p=8 full pipeline, N=4M' target",
+}
+# The fp32 FMM against the f64 FMM on the same tree: the near field's K6
+# floor (K6_ULPS, see fp32_floor) plus the far field's. L2P takes the
+# gradient of the interpolated potential: per body it sums n^D terms
+# |dS_m| * |w_m| / (h/2) whose size can be ~1e4 times the far force (the
+# potential of every V-list cell, nearly constant across a leaf, cancels),
+# so fp32 errors of the local weights w and of that sum come out at a few
+# ulps of the term sum, not of the force. Worst case, in fp32 ulps of the
+# term sum: the T_k recurrence to k = 7 about 7, the basis products 3, the
+# M2L / L2L sums of 316 x 512 terms up to 17 (pairwise), the L2P sum of 512
+# terms 9: about 36. On the CPU (fp32 against f64, same tree, uniform
+# bodies at 1e5 2D L5, 2e4 3D L2-L3 and 1e5 3D L3;
+# crosscheck/fmm_fp32_floor.py) the largest body read 1.9-6.1. Each body's far field is held to 32 ulps of its own term sum,
+# and what exceeds that to the near field's K6 floor.
+FMM_FAR_ULPS = 32
+# The sparse grid on the clustered input the dense grid refuses: Plummer
+# 1e5 3D in Henon units (G = 1, softening 4/N, models/scenarios.py:27-33 of
+# the JAX package), the shape of its artifacts/clustered_stress.json.
+# Against the f64 oracle on sampled rows: Barnes-Hut theta = 0.25 within
+# 1e-3 (section 2 of PERF.md), FMM within FMM_GATE.
+SPARSE_N = 100_000
+SPARSE_SEED = 1500
+SPARSE_BH_TOL = 1e-3
+SPARSE_UNIFORM = (1_000_000, 2)
 # The rate probe P: iterations of its plain-version check at the tool's
 # block, the tool's run, and the f32 FMA launch of the kernels line, timed
 # and held beside its plain version.
@@ -851,6 +900,349 @@ def phase_bh(cb, gen, dev, default, smi) -> dict:
     return out
 
 
+def fmm_far_allowance(fm, tree64, order) -> torch.Tensor:
+    """Each sorted body's far-field fp32 allowance: FMM_FAR_ULPS fp32 ulps
+    of its L2P term sum |Σ_m |∇S_m| |w_m|| (the f64 local weights w)."""
+    dim, L = tree64.dim, tree64.leaf_level
+    Tt, m2m = fm._tables(dim, order, torch.float64, tree64.lo.device)
+    W = fm._m2m(fm._p2m_dense(tree64, order, 1024, Tt), m2m, dim, L)
+    lw_leaf = fm._l2l(fm._m2l(tree64, W, order, 1), m2m, L,
+                      tree64.num_leaf_cells, W[L])
+    half = tree64.cell_sizes[L] / 2
+    out = []
+    for b0 in range(0, tree64.n, 1 << 16):
+        sl = slice(b0, b0 + (1 << 16))
+        leaf = tree64.leaf_ids[sl]
+        y = (tree64.pos_sorted[sl] - fm._cell_centers(tree64, leaf)) / half
+        s, ds = fm._interp_and_grad_1d(order, y, Tt)
+        s, ds = s.abs().unbind(1), ds.abs().unbind(1)
+        lw = lw_leaf[leaf].abs()
+        out.append(torch.stack([
+            (fm._outer_basis([ds[e] if e == d else s[e] for e in range(dim)])
+             * lw).sum(-1) / half[d] for d in range(dim)], dim=-1).norm(dim=-1))
+    return FMM_FAR_ULPS * 2.0 ** -24 * torch.cat(out)
+
+
+def fmm_phase_times(fm, gt, cuda_p2p, pos, mass, cfg, order) -> dict:
+    """CUDA-event times (1 warm-up, median of 3) of one fp32 evaluation and
+    of its phases on its own tree; the M2L's operations and FLOP bound."""
+    n, dim = pos.shape
+    L = gt.auto_leaf_level(n, dim)
+    tree = gt.build_grid_tree(pos, mass, L, gt.compute_capacity(pos, L))
+    Tt, m2m = fm._tables(dim, order, pos.dtype, pos.device)
+    nl = tree.num_leaf_cells
+    W = fm._m2m(fm._p2m_dense(tree, order, 1024, Tt), m2m, dim, L)
+    Lc = fm._m2l(tree, W, order, 1)
+    nD = order ** dim
+    m2l_flops = sum(2 * (1 << (dim * l)) * len(fm._v_list_deltas(dim, 1))
+                    * nD * nD for l in range(2, L + 1))
+    row = {
+        "eval": time_ms(lambda: fm.fmm_forces(pos, mass, cfg, order=order)),
+        "build": time_ms(lambda: gt.build_grid_tree(
+            pos, mass, L, gt.compute_capacity(pos, L))),
+        "p2m_m2m": time_ms(lambda: fm._m2m(
+            fm._p2m_dense(tree, order, 1024, Tt), m2m, dim, L)),
+        "m2l": time_ms(lambda: fm._m2l(tree, W, order, 1)),
+        "l2l_l2p": time_ms(lambda: fm._l2p(
+            tree, fm._l2l(dict(Lc), m2m, L, nl, W[L]), order, Tt)),
+        "p2p_k6": time_ms(lambda: cuda_p2p.near_field_cuda(
+            tree, 1, cfg.softening, 0, nl)),
+        "m2l_gflop": m2l_flops / 1e9,
+        "m2l_bound_ms": m2l_flops / FP32_PEAK * 1e3,
+        "k6_pairs": cuda_p2p.near_field_pairs(tree, 1),
+        "leaf_level": L, "capacity": tree.capacity,
+    }
+    del tree, W, Lc
+    return row
+
+
+def phase_fmm(cb, gen, dev, default, smi) -> dict:
+    """[14] The FMM tier on the card, order 8, dense layout: Simulation,
+    CLI -m f and one 4M 3D evaluation with K6 held to one launch per fp32
+    evaluation; TF32 refused; the f64 runs against the f64 oracle, the fp32
+    runs against the f64 FMM on the same tree; FMM's near phase against the
+    Barnes-Hut theta = 0.5 near phase, bit for bit; the phase times."""
+    from nbody_tpu_torch import Simulation, cli
+    from nbody_tpu_torch.config import FMM_ORDER
+    from nbody_tpu_torch.ops import cuda_p2p, fmm as fm, grid_tree as gt
+    from nbody_tpu_torch.state import random_system
+    from nbody_tpu_torch.utils.accuracy import scale_normalized_error
+    order = FMM_ORDER
+    out = {"launches": 0}
+    print(f"[14] FMM tier, order {order}, dense layout: TF32 refused, "
+          "Simulation, CLI -m f, 4M 3D, accuracy, near phase vs Barnes-Hut, "
+          "times")
+    probe = random_system(4096, 2, generator=gen, device=dev)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        fm.fmm_forces(probe.positions, probe.masses, default, order=order)
+        raise AssertionError("fmm_forces ran with allow_tf32 on")
+    except RuntimeError as e:
+        if "allow_tf32" not in str(e):
+            raise
+        print(f"    allow_tf32 = True: refused ({e})")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    n, dim = FMM_SIM
+    bodies = random_system(n, dim, generator=torch.Generator().manual_seed(
+        FMM_SEED), device=dev)
+    sim = Simulation.create(bodies, default, method="fmm")
+    print(f"    Simulation('fmm').run(steps=1), N={n} {dim}D leapfrog")
+    reset_launches()
+    t0 = time.perf_counter()
+    sim = sim.run(steps=1, dt=1e-3)
+    torch.cuda.synchronize()
+    launches = dict(counts())
+    print(f"    ran in {time.perf_counter() - t0:.2f} s")
+    expect_launches(f"Simulation('fmm') N={n} {dim}D", launches,
+                    {"near_field": 2, "p2p_leaf": 0})
+    out["launches"] += launches["near_field"]
+    if not (bool(torch.isfinite(sim.system.positions).all())
+            and sim.step_count == 1):
+        raise AssertionError("Simulation('fmm') state not finite")
+    del sim
+
+    n, dim = FMM_CLI
+    args = ["-d", str(dim), "-N", str(n), "-m", "f", "-a", "1", "--no-files",
+            "--device", "cuda"]
+    print(f"    CLI: {' '.join(args)}")
+    buf = io.StringIO()
+    reset_launches()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(args)
+    torch.cuda.synchronize()
+    launches = dict(counts())
+    print(buf.getvalue(), end="")
+    if rc != 0:
+        raise AssertionError(f"CLI -m f rc {rc}")
+    # One warm-up and one timed evaluation, one launch each.
+    expect_launches(f"CLI -m f N={n} {dim}D", launches,
+                    {"near_field": 2, "p2p_leaf": 0})
+    out["launches"] += launches["near_field"]
+    m = re.search(r"FMM_Chebyshev accuracy: ([0-9.]+)% \(norm err "
+                  r"([0-9.e+-]+)", buf.getvalue())
+    if m is None:
+        raise AssertionError("CLI -m f printed no accuracy line")
+    print(f"    FMM_Chebyshev vs BruteForce_CUDA (both fp32): {m.group(1)}%,"
+          f" norm err {m.group(2)} (printed, not held: see the fp32 floor "
+          "below)")
+
+    n, dim = FMM_BIG
+    big = random_system(n, dim, generator=gen, device=dev)
+    rows = sample_rows(n, gen, dev)
+    print(f"    fmm_forces N={n} {dim}D, order {order}, one evaluation")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    got = fm.fmm_forces(big.positions, big.masses, default, order=order)
+    torch.cuda.synchronize()
+    launches = dict(counts())
+    print(f"    ran in {time.perf_counter() - t0:.2f} s (cold), peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    expect_launches(f"fmm_forces N={n} {dim}D", launches,
+                    {"near_field": 1, "p2p_leaf": 0})
+    out["launches"] += launches["near_field"]
+    if tuple(got.shape) != (n, dim) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"fmm_forces 4M 3D: shape {tuple(got.shape)}, "
+                             "not finite")
+    err = float(scale_normalized_error(
+        got[rows].double(), oracle64(cb, big.positions, big.masses, default,
+                                     rows)))
+    print(f"    fp32 vs the f64 oracle on {rows.numel()} sampled rows: "
+          f"{err:.3e} (printed)")
+    out["err_4m_3d"] = err
+    del big, got
+
+    print(f"    accuracy: f64 runs vs the f64 oracle on {BH_ROWS} sampled "
+          f"rows (held to {FMM_GATE:g}); fp32 vs f64 on the same tree (held "
+          "to the near floor + the far floor)")
+    for n, dim in (FMM_SIM, FMM_CLI):
+        bodies = random_system(n, dim, generator=torch.Generator()
+                               .manual_seed(FMM_SEED + dim), device=dev)
+        pos, mass = bodies.positions, bodies.masses
+        rows = torch.randperm(n, generator=torch.Generator().manual_seed(
+            FMM_SEED + 10 + dim))[:BH_ROWS].to(dev)
+        want = oracle64(cb, pos, mass, default, rows)
+        reset_launches()
+        f64 = fm.fmm_forces(pos.double(), mass.double(), default,
+                            order=order)
+        torch.cuda.synchronize()
+        expect_launches(f"f64 fmm_forces N={n} {dim}D (p2p_impl 'auto')",
+                        counts(), {"near_field": 0, "p2p_leaf": 0})
+        err64 = check_close(f"N={n} {dim}D f64 FMM vs f64 oracle",
+                            f64[rows], want, tol=FMM_GATE)
+        f32 = fm.fmm_forces(pos, mass, default, order=order)
+        err32 = float(scale_normalized_error(f32[rows].double(), want))
+        err3264 = float(scale_normalized_error(f32.double(), f64))
+        print(f"    N={n} {dim}D fp32 FMM: vs the f64 oracle {err32:.3e}, vs "
+              f"the f64 FMM (own trees) {err3264:.3e} (printed)")
+        L = gt.auto_leaf_level(n, dim)
+        tree = gt.build_grid_tree(pos, mass, L, gt.compute_capacity(pos, L))
+        t64 = tree_f64(gt, tree)
+        a64 = fm.fmm_accel_sorted(t64, order=order,
+                                  softening=default.softening)
+        a32 = fm.fmm_accel_sorted(tree, order=order,
+                                  softening=default.softening,
+                                  p2p_impl="auto")
+        # Held per body: |a32 − a64| ≤ the near floor × RMS + the body's
+        # far allowance.
+        rms = float(a64.norm(dim=-1).pow(2).mean().sqrt())
+        near_tol = max(1e-5, fp32_floor(a64, K6_ULPS))
+        far = fmm_far_allowance(fm, t64, order)
+        diff = (a32.double() - a64).norm(dim=-1)
+        excess = float((diff - far).max()) / rms
+        print(f"    N={n} {dim}D fp32 (K6) vs f64 FMM, same tree: "
+              f"scale-normalized err {float(diff.max()) / rms:.3e}; beyond "
+              f"each body's far allowance ({FMM_FAR_ULPS} ulps of its L2P "
+              f"term sum, largest {float(far.max()) / rms:.3e} of the RMS) "
+              f"{excess:.3e} (tol: the near floor {near_tol:.3e}, "
+              f"{K6_ULPS} ulps of the largest force), finite "
+              f"{bool(torch.isfinite(a32).all())}")
+        if not (bool(torch.isfinite(a32).all()) and excess <= near_tol):
+            raise AssertionError(f"N={n} {dim}D fp32 FMM: {excess} beyond "
+                                 f"the far allowance > {near_tol}")
+        out[f"err_{n}_{dim}d"] = {
+            "f64_vs_oracle": float(scale_normalized_error(f64[rows], want)),
+            "f64_vs_oracle_max_abs": err64, "f32_vs_oracle": err32}
+        del bodies, f64, f32, tree, t64, a64, a32
+
+    # FMM's near phase and Barnes-Hut theta = 0.5's make the same K6 launch
+    # on the same cells: k = 1, the same leaf level and capacity.
+    n, dim = FMM_SIM
+    bodies = random_system(n, dim, generator=torch.Generator().manual_seed(
+        FMM_SEED), device=dev)
+    pos, mass = bodies.positions, bodies.masses
+    rp, bh_tree_ = bh_tree(gt, pos, mass, 0.5)
+    L = gt.auto_leaf_level(n, dim)
+    tree = gt.build_grid_tree(pos, mass, L, gt.compute_capacity(pos, L))
+    if (rp["k"], rp["leaf_level"], bh_tree_.capacity) != (1, L,
+                                                          tree.capacity):
+        raise AssertionError(f"FMM tree (1, {L}, {tree.capacity}) != "
+                             f"Barnes-Hut theta=0.5 {rp}, capacity "
+                             f"{bh_tree_.capacity}")
+    reset_launches()
+    near_fmm = fm.fmm_accel_sorted(tree, order=order,
+                                   softening=default.softening,
+                                   p2p_impl="auto", _debug_skip="m2l,l2p")
+    near_bh = gt.grid_tree_accel_sorted(
+        bh_tree_, k=1, softening=default.softening, p2p_impl="auto",
+        multipole="quad", far_impl=rp["far_impl"], _debug_skip="far")
+    torch.cuda.synchronize()
+    expect_launches("near phases, FMM and Barnes-Hut theta=0.5", counts(),
+                    {"near_field": 2, "p2p_leaf": 0})
+    same = torch.equal(near_fmm, near_bh)
+    print(f"    N={n} {dim}D near phase: FMM (_debug_skip='m2l,l2p') vs "
+          f"Barnes-Hut theta=0.5 (_debug_skip='far'), L={L}, capacity "
+          f"{tree.capacity}: bit-identical {same}")
+    if not same:
+        raise AssertionError("FMM's near phase differs from Barnes-Hut's")
+    del bodies, tree, bh_tree_, near_fmm, near_bh
+
+    print(f"    times (CUDA events, 1 warm-up, median of 3), {smi}; the "
+          "reference's rows: BASELINE.md:43-50 (reference CPU)")
+    times = {}
+    for n, dim in FMM_TIMED:
+        bodies = random_system(n, dim, generator=gen, device=dev)
+        row = fmm_phase_times(fm, gt, cuda_p2p, bodies.positions,
+                              bodies.masses, default, order)
+        times[f"{n}_{dim}d"] = row
+        print(f"    N={n} {dim}D (L={row['leaf_level']}, capacity "
+              f"{row['capacity']}): " + ", ".join(
+                  f"{a} {b:.3f}" if isinstance(b, float) else f"{a} {b}"
+                  for a, b in row.items()
+                  if a not in ("leaf_level", "capacity"))
+              + f" ms; reference: {FMM_REFERENCE_S[(n, dim)]}")
+        del bodies
+    out["times"] = times
+    return out
+
+
+def phase_sparse(cb, gen, dev, default, smi) -> dict:
+    """[15] The sparse grid on the clustered input the dense grid refuses:
+    Barnes-Hut theta = 0.25 and FMM under layout="auto" take their sparse
+    layouts (no K6 launch), against the f64 oracle; then the sparse
+    Barnes-Hut layout beside the dense one on uniform bodies."""
+    from nbody_tpu_torch import GravityConfig
+    from nbody_tpu_torch.config import FMM_ORDER
+    from nbody_tpu_torch.ops import fmm as fm, grid_tree as gt
+    from nbody_tpu_torch.ops import sparse_grid as sg
+    from nbody_tpu_torch.state import plummer_system, random_system
+    from nbody_tpu_torch.utils.accuracy import scale_normalized_error
+    n = SPARSE_N
+    cfg = GravityConfig(G=1.0, softening=4.0 / n)
+    print(f"[15] sparse grid: Plummer N={n} 3D (G=1, softening 4/N), "
+          "layout='auto'")
+    bodies = plummer_system(n, 3, generator=torch.Generator().manual_seed(
+        SPARSE_SEED), device=dev)
+    pos, mass = bodies.positions, bodies.masses
+    rows = torch.randperm(n, generator=torch.Generator().manual_seed(
+        SPARSE_SEED + 1))[:BH_ROWS].to(dev)
+    want = oracle64(cb, pos, mass, cfg, rows)
+    out = {}
+    calls = []
+    real_bh, real_stats = sg.barnes_hut_sparse, sg.sparse_grid_stats
+
+    def bh_counted(*a, **k):
+        calls.append("barnes_hut_sparse")
+        return real_bh(*a, **k)
+
+    def stats_counted(*a, **k):
+        calls.append("sparse_grid_stats")
+        return real_stats(*a, **k)
+
+    rp = gt.resolve_bh_params(n, 3, 0.25)
+    for name, fn, L, tol in (
+            ("barnes_hut_grid theta=0.25", lambda: gt.barnes_hut_grid(
+                pos, mass, cfg, theta=0.25), rp["leaf_level"], SPARSE_BH_TOL),
+            (f"fmm_forces order={FMM_ORDER}", lambda: fm.fmm_forces(
+                pos, mass, cfg, order=FMM_ORDER), gt.auto_leaf_level(n, 3),
+             FMM_GATE)):
+        cap = gt.compute_capacity(pos, L)
+        if not gt.dense_layout_degenerate(cap, n, L, 3):
+            raise AssertionError(f"{name}: capacity {cap} at L={L} is not "
+                                 "degenerate")
+        calls.clear()
+        sg.barnes_hut_sparse, sg.sparse_grid_stats = bh_counted, stats_counted
+        reset_launches()
+        try:
+            got = fn()
+            torch.cuda.synchronize()
+        finally:
+            sg.barnes_hut_sparse, sg.sparse_grid_stats = real_bh, real_stats
+        print(f"    {name}: leaf level {L}, densest leaf {cap} bodies; "
+              f"sparse calls {calls}")
+        if "sparse_grid_stats" not in calls:
+            raise AssertionError(f"{name} did not take the sparse layout")
+        expect_launches(name, counts(), {"near_field": 0, "p2p_leaf": 0})
+        err = check_close(f"{name} vs f64 oracle, {rows.numel()} sampled "
+                          "rows", got[rows], want, tol=tol)
+        ms = time_ms(fn)
+        print(f"    {name}: {ms:.3f} ms an evaluation (capacity probe and "
+              f"sparse_grid_stats included; CUDA events, 1 warm-up, median of "
+              f"3), {smi}")
+        out[name] = {"ms": ms, "max_abs_err": err, "err": float(
+            scale_normalized_error(got[rows].double(), want))}
+        del got
+    del bodies, pos, mass
+
+    n, dim = SPARSE_UNIFORM
+    bodies = random_system(n, dim, generator=gen, device=dev)
+    t = {layout: time_ms(lambda: gt.barnes_hut_grid(
+        bodies.positions, bodies.masses, default, layout=layout))
+        for layout in ("dense", "sparse")}
+    dense = gt.barnes_hut_grid(bodies.positions, bodies.masses, default,
+                               layout="dense")
+    sparse = gt.barnes_hut_grid(bodies.positions, bodies.masses, default,
+                                layout="sparse")
+    diff = float(scale_normalized_error(sparse.double(), dense.double()))
+    print(f"    barnes_hut_grid N={n} {dim}D uniform theta={default.theta}: "
+          f"dense {t['dense']:.3f} ms, sparse {t['sparse']:.3f} ms; sparse "
+          f"vs dense {diff:.3e} (both fp32; printed), {smi}")
+    out["uniform_1e6_2d"] = dict(t, diff=diff)
+    return out
+
+
 def probe_tol(op) -> float:
     """P against its plain version, max relative difference. rsqrtf and
     rcp.approx are within 2 ulp of the plain version's correctly rounded
@@ -1052,7 +1444,7 @@ def phase_times(cb, gen, dev, default, smi) -> dict:
     return t
 
 
-def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, pr,
+def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, fmm, pr,
                  ptxas) -> list:
     """The kernels JSON line: every kernel with its launches on its path,
     its error against its plain version, its times and its bound."""
@@ -1147,7 +1539,10 @@ def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, pr,
         {"name": "K6 near field (tree kernel; window entry p2p_leaf)",
          "route": "cuda", "source": "nbody_tpu_torch/csrc/p2p_leaf.cu",
          "replaces": "nbody_tpu/ops/pallas_p2p.py:30",
-         "launches": bh["launches"], "max_abs_err": k6["max_abs_err"],
+         "launches": bh["launches"] + fmm["launches"],
+         "launches_by_path": {"barnes_hut": bh["launches"],
+                              "fmm": fmm["launches"]},
+         "max_abs_err": k6["max_abs_err"],
          "ms": bh["k6_ms"], "plain_ms": bh["k6_plain_ms"],
          "timed_at": "one launch of the path, N=1e6 2D theta=0.25, every "
                      "leaf, fp32, kernel only",
@@ -1162,6 +1557,10 @@ def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, pr,
          "wrapper_ms": bh["window_wrapper_ms"],
          "window_kernel_ms": bh["window_ms"],
          "window_shape": bh["window_shape"],
+         "fmm_p2p_ms_by_shape": {key: row["p2p_k6"]
+                                 for key, row in fmm["times"].items()},
+         "fmm_real_pairs_by_shape": {key: row["k6_pairs"]
+                                     for key, row in fmm["times"].items()},
          **bounds["K6"], "library_ms": None},
         {"name": "P rate probe (dependent op loop)", "route": "cuda",
          "source": "nbody_tpu_torch/csrc/rate_probe.cu",
@@ -1369,9 +1768,11 @@ def main() -> int:
     k6 = phase_p2p(seeded(11), dev, default)
     bh = phase_bh(cb, seeded(12), dev, default, smi)
     pr = phase_probe(cb, seeded(13), dev, smi)
+    fmm = phase_fmm(cb, seeded(14), dev, default, smi)
+    phase_sparse(cb, seeded(15), dev, default, smi)
 
     kernels = kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh,
-                           pr, ptxas)
+                           fmm, pr, ptxas)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,9 @@ CUDA kernels (``ops/cuda_brute.py``), space-filling-curve keys
 npz checkpoints, and the benchmark harness and CLI. The Barnes-Hut grid
 tier (``ops/grid_tree.py`` with ``ops/hier_far.py`` and
 ``ops/local_expansion.py``) runs its leaf near field on a sixth kernel
-(``ops/cuda_p2p.py``); ``tools/microbench.py`` probes the card's rates.
+(``ops/cuda_p2p.py``), and so does the black-box FMM tier (``ops/fmm.py``);
+clustered inputs go to the sparse grid (``ops/sparse_grid.py``) under
+``layout="auto"``. ``tools/microbench.py`` probes the card's rates.
 The JAX package ``nbody_tpu`` is the reference each part is held against.
 """
 

@@ -1,8 +1,8 @@
-"""Method registry (PyTorch port of ``nbody_tpu.bench.registry``, tiers a
-and b).
+"""Method registry (PyTorch port of ``nbody_tpu.bench.registry``, tiers a,
+b and f).
 
 Tier letters match the reference CLI (``main.cpp:885-928``): a = brute
-force, b = Barnes-Hut, h = BVH, f = FMM. Tiers a and b are ported:
+force, b = Barnes-Hut, h = BVH, f = FMM. Tiers a, b and f are ported:
 
 * ``BruteForce_Torch`` — plain blocked torch path (``BruteForce_JNP``);
 * ``BruteForce_CUDA`` — the Newton-3 symmetric CUDA kernel K1
@@ -11,6 +11,8 @@ force, b = Barnes-Hut, h = BVH, f = FMM. Tiers a and b are ported:
   ``BarnesHut_Grid_Theta05`` — the grid tree, its near field on the K6
   kernel for CUDA tensors, with the JAX package's hyperparameters.
   (``BarnesHut_Sharded`` is multi-device: ROADMAP queue 1 item 12.)
+* ``FMM_Chebyshev`` — the black-box FMM at order ``min(order, 8)``, its
+  dense near field on K6 for fp32 CUDA tensors.
 
 ``cuda_only`` methods run only when the run's device is CUDA.
 """
@@ -30,7 +32,7 @@ MethodFn = Callable[[torch.Tensor, torch.Tensor, GravityConfig, TreeConfig],
 # hyper(n, dim, gravity_cfg, tree_cfg) -> the resolved configuration
 HyperFn = Callable[[int, int, GravityConfig, TreeConfig], dict]
 
-PORTED_TIERS = "ab"
+PORTED_TIERS = "abf"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,6 +110,22 @@ def _bh_grid(pos, mass, cfg, tree_cfg):
 def _bh_grid_05(pos, mass, cfg, tree_cfg):
     from ..ops.grid_tree import barnes_hut_grid
     return barnes_hut_grid(pos, mass, cfg, theta=0.5)
+
+
+# --- Tier f: FMM -------------------------------------------------------------
+
+def _fmm_hyper(n, dim, cfg, tree_cfg):
+    from ..ops.grid_tree import auto_leaf_level
+    return {"order": min(tree_cfg.order, 8),
+            "leaf_level": auto_leaf_level(n, dim),
+            "leaf_batch": 256 if (dim == 3 and n >= 5_000_000) else 1024,
+            "layout": "auto"}
+
+
+@register("FMM_Chebyshev", "f", hyper=_fmm_hyper)
+def _fmm_cheb(pos, mass, cfg, tree_cfg):
+    from ..ops.fmm import fmm_forces
+    return fmm_forces(pos, mass, cfg, order=min(tree_cfg.order, 8))
 
 
 def reference_method_for(n: int, device) -> Method:

@@ -3,13 +3,14 @@ plus ``--device``.
 
 Usage:
     python -m nbody_tpu_torch -d 2 -N 1048576 -m a --device cuda
+    python -m nbody_tpu_torch -d 3 -N 100000 -m f --device cuda
 
 Flags:
   -d/--dim {2,3}      spatial dimension (default 2, like the reference)
   -N/--bodies INT     number of bodies (default 1000)
   -a/--accuracy {0,1} compute accuracy vs the brute-force oracle
   -m/--methods STR    tier letters: a=brute force, b=Barnes-Hut, h=BVH, f=FMM
-                      (default: all); ``a`` and ``b`` are ported so far
+                      (default: all); ``a``, ``b`` and ``f`` are ported so far
   --device {cuda,cpu} where the bodies live (default cuda). Without a GPU,
                       ``cuda`` is an error: the CLI never falls back.
 

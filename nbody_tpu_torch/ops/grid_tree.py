@@ -32,8 +32,10 @@ What differs from the JAX package, and why:
   explicit ``capacity`` measures it (one device sync).
 * ``_bh_grid_fused`` (jit fusion against relay latency) is the body of
   :func:`barnes_hut_grid`.
-* The sparse grid (``layout="sparse"``, and ``"auto"`` on a degenerate
-  input) and the sharded evaluation (``shard_axis``) are not ported yet.
+* The sparse build's scatter-adds (``.at[cell].add``) are ``index_add_``:
+  a cell's chunks are summed locally, never as a cumsum difference. On CUDA
+  its float order is not fixed from run to run.
+* The sharded evaluation (``shard_axis``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -50,10 +52,6 @@ import torch
 from ..config import DEFAULT_GRAVITY, GravityConfig
 from .brute_force import _DIST2_GUARD
 from .keys import morton_key_from_coords, quantize
-
-_SPARSE_TODO = ("the sparse grid is not ported to PyTorch yet (ROADMAP "
-                "queue 1 item 10)")
-
 
 def _compact2(x):
     """Inverse of keys._spread2: even bits of a uint32 held in int64."""
@@ -281,19 +279,69 @@ def reduce_levels(m_l, mx_l, S_l, *, dim, L, dtype):
     return level_mass, level_com, level_pack, level_quad
 
 
+def chunk_table(starts, counts, *, chunk: int, num_chunks: int):
+    """Cell-aligned chunks of at most ``chunk`` sorted bodies: each cell's
+    contiguous run split into ⌈count/chunk⌉ chunks that never straddle a
+    cell boundary. ``num_chunks`` rows (the exact total from
+    ``sparse_grid.sparse_grid_stats``); rows past the true total have
+    length 0.
+
+    Returns (cell [NT], cstart [NT], clen [NT], coffs [ncells + 1]), int64,
+    ``coffs`` the exclusive prefix sum of the per-cell chunk counts.
+    """
+    ncells = counts.shape[0]
+    nchunk = -(-counts // chunk)
+    coffs = torch.cat([counts.new_zeros(1), torch.cumsum(nchunk, 0)])
+    r = torch.arange(num_chunks, dtype=coffs.dtype, device=coffs.device)
+    cell = (torch.searchsorted(coffs, r, right=True) - 1).clamp(0, ncells - 1)
+    within = r - coffs[cell]
+    cstart = starts[cell] + within * chunk
+    clen = (counts[cell] - within * chunk).clamp(0, chunk)
+    clen = torch.where(r < coffs[-1], clen, torch.zeros_like(clen))
+    return cell, cstart, clen, coffs
+
+
+def _leaf_chunk_sums(body_rows, starts, counts, *, num_chunks, chunk, ncells,
+                     dim, quad):
+    """Leaf (m [C], mx [C, D], S [C, nq] | None) from masked per-chunk
+    partial sums of ``body_rows`` [N8, 4] added into the cells: O(N) memory
+    however clustered the bodies are. The same sums as
+    :func:`leaf_window_sums`, second moments about the leaf COM, partitioned
+    by chunk."""
+    cell, cstart, clen, _ = chunk_table(starts, counts, chunk=chunk,
+                                        num_chunks=num_chunks)
+    ar = torch.arange(chunk, device=body_rows.device)
+    rows = body_rows[(cstart[:, None] + ar).clamp(0, body_rows.shape[0] - 1)]
+    w = rows[..., 3] * (ar < clen[:, None])
+    dt = body_rows.dtype
+    m = torch.zeros(ncells, dtype=dt, device=body_rows.device)\
+        .index_add_(0, cell, w.sum(1))
+    mx = torch.zeros((ncells, dim), dtype=dt, device=body_rows.device)\
+        .index_add_(0, cell, (w[..., None] * rows[..., :dim]).sum(1))
+    S = None
+    if quad:
+        com = mx / m.clamp(min=1e-30)[:, None]
+        d = rows[..., :dim] - com[cell][:, None, :]
+        qp = _quad_pairs(dim)
+        S = torch.zeros((ncells, len(qp)), dtype=dt, device=body_rows.device)\
+            .index_add_(0, cell, torch.stack(
+                [(w * d[..., a] * d[..., b]).sum(1) for a, b in qp], dim=-1))
+    return m, mx, S
+
+
 def build_grid_tree(positions: torch.Tensor, masses: torch.Tensor,
                     leaf_level: int, capacity: int, quad: bool = False,
                     agg_num_chunks: Optional[int] = None,
                     agg_chunk_size: int = 64) -> GridTree:
     """Level-synchronous build (the reference's octree.cpp:165-204 insert).
 
-    ``quad=True`` also builds the per-level second moments. The sparse
-    aggregation (``agg_num_chunks``) is not ported yet.
+    ``quad=True`` also builds the per-level second moments.
+    ``agg_num_chunks`` takes the leaf aggregates from cell-aligned chunks of
+    ``agg_chunk_size`` bodies (:func:`_leaf_chunk_sums`), the sparse path's
+    build, whose max leaf occupancy is unbounded; ``capacity`` is then only
+    the metadata of :func:`_window_rows`, which the sparse evaluation never
+    calls.
     """
-    del agg_chunk_size
-    if agg_num_chunks is not None:
-        raise NotImplementedError(f"build_grid_tree(agg_num_chunks=...): "
-                                  f"{_SPARSE_TODO}")
     n, dim = positions.shape
     L = leaf_level
     dt, dev = positions.dtype, positions.device
@@ -328,9 +376,14 @@ def build_grid_tree(positions: torch.Tensor, masses: torch.Tensor,
     bt[:n, 3] = mass_s
     body_pack = bt.reshape(np8 // 8, 32)
 
-    m_leaf, mx_leaf, S_leaf = leaf_window_sums(
-        body_pack, starts, ends, capacity=capacity, ncells=num_leaf_cells,
-        dim=dim, quad=quad)
+    if agg_num_chunks is not None:
+        m_leaf, mx_leaf, S_leaf = _leaf_chunk_sums(
+            bt, starts, counts, num_chunks=agg_num_chunks,
+            chunk=agg_chunk_size, ncells=num_leaf_cells, dim=dim, quad=quad)
+    else:
+        m_leaf, mx_leaf, S_leaf = leaf_window_sums(
+            body_pack, starts, ends, capacity=capacity,
+            ncells=num_leaf_cells, dim=dim, quad=quad)
     level_mass, level_com, level_pack, level_quad = reduce_levels(
         m_leaf, mx_leaf, S_leaf, dim=dim, L=L, dtype=dt)
 
@@ -869,8 +922,13 @@ def barnes_hut_grid(
     far field and batching from :func:`resolve_bh_params`). ``p2p_impl``:
     ``"auto"`` (K6 for fp32 bodies on the card, else the plain near field
     in the bodies' dtype), ``"cuda"`` (K6 in fp32 on any dtype) or
-    ``"plain"``. ``layout="dense"`` or ``"auto"`` on a quasi-uniform input;
-    the sparse grid is not ported yet.
+    ``"plain"``. ``layout``: ``"dense"`` (capacity-padded leaves; refuses a
+    degenerate capacity), ``"sparse"`` (``ops/sparse_grid.py``: chunked
+    targets, windowed near field, O(N) memory on any distribution; its near
+    field is plain torch, so no K6 launch), or ``"auto"``: dense, and sparse
+    where the capacity guard would trip. The sparse path keeps the resolved
+    leaf level and runs ``"hier"`` as ``"local"``: ``far_field_rings`` has
+    no hier mode for chunk targets.
     """
     n, dim = positions.shape
     theta = config.theta if theta is None else theta
@@ -880,20 +938,24 @@ def barnes_hut_grid(
     k, far_impl = rp["k"], rp["far_impl"]
     num_segments, leaf_batch = rp["num_segments"], rp["leaf_batch"]
     leaf_level = rp["leaf_level"]
-    if layout == "sparse":
-        raise NotImplementedError(f"barnes_hut_grid(layout='sparse'): "
-                                  f"{_SPARSE_TODO}")
-    if layout not in ("auto", "dense"):
+    if layout not in ("auto", "dense", "sparse"):
         raise ValueError(f"layout must be 'auto', 'dense' or 'sparse', "
                          f"got {layout!r}")
+
+    def sparse():
+        from .sparse_grid import barnes_hut_sparse
+        return barnes_hut_sparse(
+            positions, masses, config, theta=theta, leaf_level=leaf_level,
+            multipole=multipole,
+            far_impl="local" if far_impl == "hier" else far_impl)
+
+    if layout == "sparse":
+        return sparse()
     if capacity is None:
         capacity = compute_capacity(positions, leaf_level)
         if layout == "auto" and dense_layout_degenerate(
                 capacity, n, leaf_level, dim):
-            raise NotImplementedError(
-                f"barnes_hut_grid: this input is too clustered for the dense "
-                f"grid (capacity {capacity}, N={n}, leaf level {leaf_level}) "
-                f"and {_SPARSE_TODO}")
+            return sparse()
         check_grid_capacity(capacity, n, leaf_level, dim, "barnes_hut_grid")
     p2p_impl = _resolve_p2p_impl(p2p_impl, positions.device)
     soft = float(config.softening)

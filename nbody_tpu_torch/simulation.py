@@ -12,8 +12,10 @@ Port of ``nbody_tpu.simulation``:
 kernel (``brute_force_cuda``, mode ``"precise"``), CPU tensors to the plain
 ``brute_force_blocked``, as the JAX package does off-TPU. ``"barnes_hut"``
 is the grid tree (``ops/grid_tree.barnes_hut_grid``) at the configuration's
-θ; its near field runs the K6 kernel on CUDA tensors. The other tree
-methods are not ported yet and raise ``NotImplementedError``.
+θ, ``"fmm"`` the black-box FMM (``ops/fmm.fmm_forces``) at
+``min(tree.order, 8)``; the near field of both runs the K6 kernel for fp32
+CUDA tensors on the dense layout. ``"bvh"`` is not ported yet and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,7 +34,6 @@ from .state import System
 # Methods of nbody_tpu.simulation that wait for a later slice of the port.
 _UNPORTED = {
     "bvh": "ROADMAP queue 1 item 11 (BVH)",
-    "fmm": "ROADMAP queue 1 item 9 (FMM)",
 }
 
 
@@ -53,8 +54,14 @@ def _bh(gravity: GravityConfig, tree: TreeConfig, device: torch.device):
                              theta=gravity.theta)
 
 
+def _fmm(gravity: GravityConfig, tree: TreeConfig, device: torch.device):
+    from .ops.fmm import fmm_forces
+    return functools.partial(fmm_forces, config=gravity,
+                             order=min(tree.order, 8))
+
+
 # method name -> forces(positions, masses) builder
-_FORCE_BUILDERS = {"brute": _brute, "barnes_hut": _bh}
+_FORCE_BUILDERS = {"brute": _brute, "barnes_hut": _bh, "fmm": _fmm}
 
 
 def available_methods():

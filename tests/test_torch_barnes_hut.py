@@ -97,7 +97,7 @@ def test_tier_b_hyperparams_match_jax():
                 assert registry.get(name).hyperparams(
                     n, dim, cfg, TreeConfig()) == jreg.get(name).hyperparams(
                     n, dim, JGravity(), None)
-    assert registry.PORTED_TIERS == "ab"
+    assert registry.PORTED_TIERS == "abf"
     assert [m.tier for m in registry.methods_for_tiers("b", "cpu")] == \
         ["b", "b"]
 

@@ -37,7 +37,7 @@ def test_cli_no_files_and_steps(capsys):
     assert "final position of body 0:" in out
 
 
-@pytest.mark.parametrize("tiers", ["bh", "ah", "f"])
+@pytest.mark.parametrize("tiers", ["bh", "ah", "h"])
 def test_cli_unported_tier_exits_2(tiers, capsys):
     assert cli.main(["-m", tiers, "--device", "cpu", "--no-files"]) == 2
     assert "not ported" in capsys.readouterr().err
@@ -69,7 +69,7 @@ def test_registry_gates_cuda_methods_on_the_run_device():
         ["BruteForce_Torch"]
     names = {m.name for m in registry.methods_for_tiers("abhf", "cuda")}
     assert names == {"BruteForce_Torch", "BruteForce_CUDA", "BarnesHut_Grid",
-                     "BarnesHut_Grid_Theta05"}
+                     "BarnesHut_Grid_Theta05", "FMM_Chebyshev"}
     assert [m.name for m in registry.methods_for_tiers("b", "cpu")] == \
         ["BarnesHut_Grid", "BarnesHut_Grid_Theta05"]
     assert registry.get("BruteForce_CUDA").hyperparams(10, 2, None, None) \

@@ -262,22 +262,35 @@ def test_near_launches_counts_the_near_field_calls(monkeypatch, k, dim,
 
 
 def test_unported_layouts_and_p2p_impl_raise():
+    """The sparse layout, the chunked build and "auto" on a degenerate
+    input now run (held to the JAX package here; the sparse grid's own
+    tests are tests/test_torch_sparse_grid.py); a bad layout or p2p_impl
+    still raises."""
     pos, mass = _bodies(4000, 2, seed=1)
     tp, tm = torch.from_numpy(pos), torch.from_numpy(mass)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tg.barnes_hut_grid(tp, tm, layout="sparse")
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tg.build_grid_tree(tp, tm, 2, 64, agg_num_chunks=16)
+    want = jg.barnes_hut_grid(jnp.asarray(pos), jnp.asarray(mass),
+                              theta=0.5, layout="sparse")
+    assert _acc_err(tg.barnes_hut_grid(tp, tm, theta=0.5, layout="sparse"),
+                    want) < 1e-12
+    nt = sum(-(-c // 64) for c in tg.build_grid_tree(
+        tp, tm, 2, 512).cell_count.tolist())
+    chunked = tg.build_grid_tree(tp, tm, 2, 64, agg_num_chunks=nt)
+    dense = tg.build_grid_tree(tp, tm, 2, 512)
+    for h, w in zip(chunked.level_pack, dense.level_pack):
+        _close(h, w)
     # 60% of the bodies in one small cell (the JAX package's own example of
-    # a degenerate dense layout, grid_tree.py:226-230).
+    # a degenerate dense layout, grid_tree.py:226-230): "auto" takes the
+    # sparse path, as the JAX package's does.
     clustered = tp.clone()
     clustered[:2400] = 5e6 + torch.from_numpy(
         np.random.default_rng(2).uniform(0, 1, (2400, 2)))
     cap = jg.compute_capacity(jnp.asarray(clustered.numpy()), 4)
     assert jg.dense_layout_degenerate(cap, 4000, 4, 2)
     assert tg.dense_layout_degenerate(cap, 4000, 4, 2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        tg.barnes_hut_grid(clustered, tm, leaf_level=4)
+    want = jg.barnes_hut_grid(jnp.asarray(clustered.numpy()),
+                              jnp.asarray(mass), theta=0.5, leaf_level=4)
+    assert _acc_err(tg.barnes_hut_grid(clustered, tm, theta=0.5,
+                                       leaf_level=4), want) < 1e-12
     with pytest.raises(ValueError, match="layout"):
         tg.barnes_hut_grid(tp, tm, layout="tiled")
     with pytest.raises(ValueError, match="CUDA tensors"):

@@ -20,6 +20,8 @@ mods = ["nbody_tpu_torch"] + [
         nbody_tpu_torch.__path__, prefix="nbody_tpu_torch.")]
 for name in mods:
     __import__(name)
+for name in ("nbody_tpu_torch.ops.fmm", "nbody_tpu_torch.ops.sparse_grid"):
+    assert name in mods, name
 jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not jax_mods, jax_mods
 ref_mods = sorted(m for m in sys.modules

@@ -52,14 +52,14 @@ def test_run_and_energy_match_jax(dim, integrator):
 
 def test_methods_unknown_and_unported():
     _, tsys = shared(n=8)
-    assert available_methods() == ["barnes_hut", "brute"]
+    assert available_methods() == ["barnes_hut", "brute", "fmm"]
     with pytest.raises(ValueError):
         Simulation.create(tsys, method="magic")
     with pytest.raises(ValueError):
         Simulation.create(tsys, integrator="rk9")
-    for method in ("bvh", "fmm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Simulation.create(tsys, method=method)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Simulation.create(tsys, method="bvh")
+    assert Simulation.create(tsys, method="fmm").method == "fmm"
 
 
 def test_save_load_round_trip(tmp_path):
