@@ -29,7 +29,12 @@ before it and read just after:
   Barnes-Hut theta = 0.5's, and the phase times;
 * the sparse grid on a clustered Plummer 1e5 3D input (Barnes-Hut and FMM
   under ``layout="auto"``, no K6 launch) against the f64 oracle, and the
-  sparse Barnes-Hut layout beside the dense one at 1e6 2D.
+  sparse Barnes-Hut layout beside the dense one at 1e6 2D;
+* the Hilbert radix BVH tier (plain torch, no kernel launch on its path),
+  ``Simulation(method="bvh")`` at N = 1e6 2D, the CLI ``-m h`` at 1e5 3D,
+  one evaluation at 5e6 2D and the Plummer input with ``caps_state``
+  (escalation), against the f64 oracle; its f64 path on the card against
+  the CPU's; its phase times.
 
 It times every kernel against its plain version and gives each its bound
 (the least time the card could take for the same work). Every check raises on
@@ -177,6 +182,28 @@ SPARSE_N = 100_000
 SPARSE_SEED = 1500
 SPARSE_BH_TOL = 1e-3
 SPARSE_UNIFORM = (1_000_000, 2)
+# The BVH tier at the reference's BVH_Parlay rows (BASELINE.md:38-41,
+# uniform random_system; reference CPU seconds): Simulation one leapfrog
+# step at 1e6 2D, the CLI -m h -a 1 at 1e5 3D, one evaluation at 5e6 2D
+# (far_impl resolves to "local" there), and the Plummer input of [15]
+# through bvh_forces with caps_state. Each held on BH_ROWS sampled rows to
+# the grid tier's theta = 0.25 bound against the f64 oracle (PERF.md § 2);
+# the seeded second Plummer call to BVH_SEEDED_TOL of the first (the
+# escalated groups walk with other capacities: other chunks, other sums).
+# The f64 path on the card against the f64 path on the CPU at BVH_F64_N
+# bodies, to 1e-12: CUDA's sort, gathers and index_put_ change no MAC
+# decision. The phase split at BVH_TIMED.
+BVH_SIM = (1_000_000, 2)
+BVH_CLI = (100_000, 3)
+BVH_BIG = (5_000_000, 2)
+BVH_SEED = 1600
+BVH_TOL = 1e-3
+BVH_SEEDED_TOL = 1e-5
+BVH_F64_N = 20_000
+BVH_F64_TOL = 1e-12
+BVH_TIMED = [(1_000_000, 2), (100_000, 3)]
+BVH_PARLAY_S = {(100_000, 2): 0.256, (100_000, 3): 1.659,
+                (1_000_000, 2): 9.72, (5_000_000, 2): 67.75}
 # The rate probe P: iterations of its plain-version check at the tool's
 # block, the tool's run, and the f32 FMA launch of the kernels line, timed
 # and held beside its plain version.
@@ -1243,6 +1270,209 @@ def phase_sparse(cb, gen, dev, default, smi) -> dict:
     return out
 
 
+def bvh_phase_split(bvh, pos, mass, cfg, smi) -> dict:
+    """The BVH evaluation's phases at bvh_forces's defaults (CUDA events, 1
+    warm-up, median of 3): the build, the walk without pass 2, pass 2 (the
+    walk less that), the whole evaluation; its host read-backs and peak
+    memory."""
+    n, dim = pos.shape
+    kb = dim * bvh.MAX_BITS[dim]
+    walk = dict(leaf_size=16, theta=cfg.theta, softening=cfg.softening,
+                group_size=min(1024, n), batch=128, multipole="quad",
+                far_impl=bvh.resolve_bvh_far_impl(n))
+    tree = bvh.build_bvh(pos, mass, kb, quad=True)
+    t = {"build": time_ms(lambda: bvh.build_bvh(pos, mass, kb, quad=True)),
+         "walk_no_near": time_ms(lambda: bvh.bvh_accel_sorted(
+             tree, **walk, _debug_skip="near")),
+         "walk": time_ms(lambda: bvh.bvh_accel_sorted(tree, **walk)),
+         "eval": time_ms(lambda: bvh.bvh_forces(pos, mass, cfg))}
+    t["near"] = t["walk"] - t["walk_no_near"]
+    del tree
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    bvh.HOST_READS["count"] = 0
+    bvh.bvh_forces(pos, mass, cfg)
+    torch.cuda.synchronize()
+    t["host_reads"] = bvh.HOST_READS["count"]
+    t["peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    ref = BVH_PARLAY_S.get((n, dim))
+    print(f"    BVH phases N={n} {dim}D: build {t['build']:.3f} ms, walk "
+          f"without pass 2 {t['walk_no_near']:.3f} ms, pass 2 "
+          f"{t['near']:.3f} ms, evaluation {t['eval']:.3f} ms; "
+          f"{t['host_reads']} host read-backs, peak {t['peak_gib']:.3f} GiB "
+          f"above the bodies; reference BVH_Parlay "
+          f"{'%g s' % ref if ref else 'none'}; {smi}")
+    return t
+
+
+def phase_bvh(cb, dev, default, smi, sparse) -> dict:
+    """[16] The BVH tier on the card, plain torch: Simulation('bvh'), the
+    CLI -m h, 5e6 2D, Plummer with caps_state against [15]'s sparse grid,
+    the f64 path against the CPU's, and the phase split. No kernel of K1-K6
+    is on its path; the only launches in the phase are K1's as the CLI's
+    accuracy reference."""
+    from nbody_tpu_torch import GravityConfig, Simulation, cli
+    from nbody_tpu_torch.ops import bvh
+    from nbody_tpu_torch.state import plummer_system, random_system
+    from nbody_tpu_torch.utils.accuracy import scale_normalized_error
+    t_phase = time.perf_counter()
+    out = {}
+    print("[16] BVH tier: Simulation('bvh'), CLI -m h, 5e6 2D, Plummer "
+          "caps_state, f64 CUDA vs CPU, phase split")
+    reset_launches()
+
+    def draw(n, dim, seed):
+        bodies = random_system(n, dim, generator=torch.Generator()
+                               .manual_seed(seed), device=dev)
+        rows = torch.randperm(n, generator=torch.Generator().manual_seed(
+            seed + 1))[:BH_ROWS].to(dev)
+        return bodies, rows
+
+    def timed(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = fn()
+        end.record()
+        end.synchronize()
+        return res, start.elapsed_time(end)
+
+    # 1. Simulation('bvh'): one evaluation held, then one leapfrog step.
+    n, dim = BVH_SIM
+    bodies, rows = draw(n, dim, BVH_SEED)
+    pos, mass = bodies.positions, bodies.masses
+    sim = Simulation.create(bodies, default, method="bvh")
+    got, ms = timed(sim.forces)
+    want = oracle64(cb, pos, mass, default, rows)
+    out["sim_err"] = check_close(
+        f"Simulation('bvh') N={n} {dim}D one evaluation ({ms:.3f} ms), "
+        f"{rows.numel()} sampled rows vs f64 oracle", got[rows], want,
+        tol=BVH_TOL)
+    t0 = time.perf_counter()
+    sim = sim.run(steps=1, dt=1e-3)
+    torch.cuda.synchronize()
+    print(f"    Simulation('bvh').run(steps=1): {time.perf_counter() - t0:.2f}"
+          " s (two evaluations)")
+    if not (sim.step_count == 1
+            and bool(torch.isfinite(sim.system.positions).all())
+            and bool(torch.isfinite(sim.system.velocities).all())):
+        raise AssertionError("Simulation('bvh') state not finite")
+    # ADVICE: accuracy comparisons pin far_impl. At 1e6 the Simulation's
+    # evaluation was "point".
+    if bvh.resolve_bvh_far_impl(n) != "point":
+        raise AssertionError(f"far_impl at N={n} is not 'point'")
+    for impl in ("point", "local"):
+        if impl == "local":
+            got = bvh.bvh_forces(pos, mass, default, far_impl=impl)
+        err = float(scale_normalized_error(got[rows].double(), want))
+        print(f"    far_impl={impl!r} at N={n} {dim}D: {err:.3e} vs the f64 "
+              "oracle on the same rows (printed)")
+        out[f"err_{impl}"] = err
+    del sim, got, bodies, pos, mass
+
+    # 2. The CLI, its accuracy against its own reference (K1).
+    n, dim = BVH_CLI
+    args = ["-d", str(dim), "-N", str(n), "-m", "h", "-a", "1", "--no-files",
+            "--device", "cuda"]
+    print(f"    CLI: {' '.join(args)}")
+    k1_before = counts()["symmetric"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(args)
+    torch.cuda.synchronize()
+    print(buf.getvalue(), end="")
+    k1_cli = counts()["symmetric"] - k1_before
+    m = re.search(r"BVH_Radix accuracy: ([0-9.]+)% \(norm err ([0-9.e+-]+)",
+                  buf.getvalue())
+    print(f"    BVH_Radix vs BruteForce_CUDA: {m.groups() if m else None} "
+          f"(norm err tol {BVH_TOL:g}); K1 launches for the reference "
+          f"(warm-up and timed): {k1_cli}")
+    if rc != 0 or m is None or not float(m.group(2)) < BVH_TOL \
+            or k1_cli != 2:
+        raise AssertionError(f"CLI -m h: rc {rc}, match {m}, K1 {k1_cli}")
+
+    # 3. One evaluation at 5e6 2D, far_impl resolved to "local".
+    n, dim = BVH_BIG
+    bodies, rows = draw(n, dim, BVH_SEED + 2)
+    pos, mass = bodies.positions, bodies.masses
+    if bvh.resolve_bvh_far_impl(n) != "local":
+        raise AssertionError("far_impl at 5e6 is not 'local'")
+    got, ms = timed(lambda: bvh.bvh_forces(pos, mass, default))
+    out["big_ms"] = ms
+    out["big_err"] = check_close(
+        f"bvh_forces N={n} {dim}D far_impl='local' ({ms:.3f} ms, reference "
+        f"BVH_Parlay {BVH_PARLAY_S[(n, dim)]} s), {rows.numel()} sampled "
+        "rows vs f64 oracle", got[rows], oracle64(cb, pos, mass, default,
+                                                  rows), tol=BVH_TOL)
+    del bodies, pos, mass, got
+
+    # 4. Plummer (the bodies of [15]) with caps_state: the first call
+    # escalates, the second is seeded from the dict.
+    n = SPARSE_N
+    cfg = GravityConfig(G=1.0, softening=4.0 / n, theta=0.25)
+    bodies = plummer_system(n, 3, generator=torch.Generator().manual_seed(
+        SPARSE_SEED), device=dev)
+    pos, mass = bodies.positions, bodies.masses
+    rows = torch.randperm(n, generator=torch.Generator().manual_seed(
+        SPARSE_SEED + 1))[:BH_ROWS].to(dev)
+    caps = {}
+    first, ms1 = timed(lambda: bvh.bvh_forces(pos, mass, cfg,
+                                              caps_state=caps))
+    print(f"    Plummer N={n} 3D (G=1, softening 4/N), theta=0.25: caps_state "
+          f"after the first call {caps}")
+    if set(caps) != {"w2", "nl2"} or any(
+            v <= 0 or v != bvh._cap_bucket(v) for v in caps.values()):
+        raise AssertionError(f"the first call did not escalate: {caps}")
+    out["plummer_err"] = check_close(
+        f"Plummer bvh_forces, {rows.numel()} sampled rows vs f64 oracle",
+        first[rows], oracle64(cb, pos, mass, cfg, rows), tol=BVH_TOL)
+    second, ms2 = timed(lambda: bvh.bvh_forces(pos, mass, cfg,
+                                               caps_state=caps))
+    check_close("Plummer second call (seeded) vs the first", second,
+                first.double(), tol=BVH_SEEDED_TOL)
+    sparse_ms = sparse["barnes_hut_grid theta=0.25"]["ms"]
+    print(f"    Plummer bvh_forces: first call {ms1:.3f} ms, seeded second "
+          f"call {ms2:.3f} ms; [15]'s sparse-grid Barnes-Hut theta=0.25 "
+          f"{sparse_ms:.3f} ms on the same bodies; {smi}")
+    out.update(plummer_ms=(ms1, ms2), plummer_caps=dict(caps))
+    del bodies, pos, mass, first, second
+
+    # 5. The f64 path on the card against the f64 path on the CPU.
+    cfg = GravityConfig(G=1.0, softening=1e-3, theta=0.25)
+    for dim in (3, 2):
+        gen = torch.Generator().manual_seed(BVH_SEED + dim)
+        pos = torch.rand((BVH_F64_N, dim), generator=gen, dtype=torch.float64)
+        mass = 0.5 + torch.rand((BVH_F64_N,), generator=gen,
+                                dtype=torch.float64)
+        t0 = time.perf_counter()
+        host = bvh.bvh_forces(pos, mass, cfg)
+        t_cpu = time.perf_counter() - t0
+        card = bvh.bvh_forces(pos.to(dev), mass.to(dev), cfg).cpu()
+        diff = float((card - host).abs().max() / host.abs().max())
+        print(f"    f64 N={BVH_F64_N} {dim}D: CUDA vs CPU max abs diff "
+              f"{diff:.3e} of the largest force (tol {BVH_F64_TOL:g}; the "
+              f"CPU path took {t_cpu:.1f} s)")
+        if not diff <= BVH_F64_TOL:
+            raise AssertionError(f"f64 CUDA path vs CPU path: {diff}")
+
+    # 6. The phase split.
+    for n, dim in BVH_TIMED:
+        bodies = random_system(n, dim, generator=torch.Generator()
+                               .manual_seed(BVH_SEED + 10 + dim), device=dev)
+        out[f"{n}_{dim}d"] = bvh_phase_split(bvh, bodies.positions,
+                                             bodies.masses, default, smi)
+        del bodies
+
+    launches = dict(counts())
+    print(f"    launches in the phase: {launches}")
+    if launches["symmetric"] != k1_cli or any(
+            v for k, v in launches.items() if k != "symmetric"):
+        raise AssertionError(f"a kernel ran on the BVH path: {launches}")
+    print(f"    [16] took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def probe_tol(op) -> float:
     """P against its plain version, max relative difference. rsqrtf and
     rcp.approx are within 2 ulp of the plain version's correctly rounded
@@ -1612,6 +1842,7 @@ def main() -> int:
 
     # K5's plain version is a matmul: it must run in full fp32.
     torch.backends.cuda.matmul.allow_tf32 = False
+    t_run = time.perf_counter()
 
     # 1. Device.
     smi = nvidia_smi_line()
@@ -1769,10 +2000,12 @@ def main() -> int:
     bh = phase_bh(cb, seeded(12), dev, default, smi)
     pr = phase_probe(cb, seeded(13), dev, smi)
     fmm = phase_fmm(cb, seeded(14), dev, default, smi)
-    phase_sparse(cb, seeded(15), dev, default, smi)
+    sparse = phase_sparse(cb, seeded(15), dev, default, smi)
+    phase_bvh(cb, dev, default, smi, sparse)
 
     kernels = kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh,
                            fmm, pr, ptxas)
+    print(f"chip_smoke: phases [1]-[16] in {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

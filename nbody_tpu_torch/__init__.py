@@ -9,8 +9,9 @@ tier (``ops/grid_tree.py`` with ``ops/hier_far.py`` and
 ``ops/local_expansion.py``) runs its leaf near field on a sixth kernel
 (``ops/cuda_p2p.py``), and so does the black-box FMM tier (``ops/fmm.py``);
 clustered inputs go to the sparse grid (``ops/sparse_grid.py``) under
-``layout="auto"``. ``tools/microbench.py`` probes the card's rates.
-The JAX package ``nbody_tpu`` is the reference each part is held against.
+``layout="auto"``. The Hilbert radix BVH tier (``ops/bvh.py``) builds its
+tree and walks it in plain torch. ``tools/microbench.py`` probes the card's
+rates. The JAX package ``nbody_tpu`` is the reference each part is held against.
 """
 
 from .config import (
@@ -28,6 +29,7 @@ from .ops.brute_force import (
     kinetic_energy,
     potential_energy,
 )
+from .ops.bvh import bvh_forces
 from .ops.grid_tree import barnes_hut_grid
 from .simulation import Simulation, available_methods
 from .utils.accuracy import (

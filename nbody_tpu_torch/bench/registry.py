@@ -1,8 +1,7 @@
-"""Method registry (PyTorch port of ``nbody_tpu.bench.registry``, tiers a,
-b and f).
+"""Method registry (PyTorch port of ``nbody_tpu.bench.registry``).
 
 Tier letters match the reference CLI (``main.cpp:885-928``): a = brute
-force, b = Barnes-Hut, h = BVH, f = FMM. Tiers a, b and f are ported:
+force, b = Barnes-Hut, h = BVH, f = FMM. All four are ported:
 
 * ``BruteForce_Torch`` — plain blocked torch path (``BruteForce_JNP``);
 * ``BruteForce_CUDA`` — the Newton-3 symmetric CUDA kernel K1
@@ -11,6 +10,8 @@ force, b = Barnes-Hut, h = BVH, f = FMM. Tiers a, b and f are ported:
   ``BarnesHut_Grid_Theta05`` — the grid tree, its near field on the K6
   kernel for CUDA tensors, with the JAX package's hyperparameters.
   (``BarnesHut_Sharded`` is multi-device: ROADMAP queue 1 item 12.)
+* ``BVH_Radix`` — the Hilbert radix BVH, quadrupole far field, with the
+  JAX package's hyperparameters (``BVH_Sharded``: item 12).
 * ``FMM_Chebyshev`` — the black-box FMM at order ``min(order, 8)``, its
   dense near field on K6 for fp32 CUDA tensors.
 
@@ -32,7 +33,7 @@ MethodFn = Callable[[torch.Tensor, torch.Tensor, GravityConfig, TreeConfig],
 # hyper(n, dim, gravity_cfg, tree_cfg) -> the resolved configuration
 HyperFn = Callable[[int, int, GravityConfig, TreeConfig], dict]
 
-PORTED_TIERS = "abf"
+PORTED_TIERS = "abhf"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,6 +111,22 @@ def _bh_grid(pos, mass, cfg, tree_cfg):
 def _bh_grid_05(pos, mass, cfg, tree_cfg):
     from ..ops.grid_tree import barnes_hut_grid
     return barnes_hut_grid(pos, mass, cfg, theta=0.5)
+
+
+# --- Tier h: Hilbert BVH -----------------------------------------------------
+
+def _bvh_hyper(n, d, c, t):
+    from ..ops.bvh import resolve_bvh_far_impl
+    return {"theta": c.theta, "leaf_size": t.max_bodies_per_leaf,
+            "multipole": "quad", "far_impl": resolve_bvh_far_impl(n),
+            "group_size": min(1024, max(1, n))}
+
+
+@register("BVH_Radix", "h", hyper=_bvh_hyper)
+def _bvh_radix(pos, mass, cfg, tree_cfg):
+    from ..ops.bvh import bvh_forces
+    return bvh_forces(pos, mass, cfg,
+                      leaf_size=tree_cfg.max_bodies_per_leaf)
 
 
 # --- Tier f: FMM -------------------------------------------------------------

@@ -14,8 +14,9 @@ kernel (``brute_force_cuda``, mode ``"precise"``), CPU tensors to the plain
 is the grid tree (``ops/grid_tree.barnes_hut_grid``) at the configuration's
 θ, ``"fmm"`` the black-box FMM (``ops/fmm.fmm_forces``) at
 ``min(tree.order, 8)``; the near field of both runs the K6 kernel for fp32
-CUDA tensors on the dense layout. ``"bvh"`` is not ported yet and raises
-``NotImplementedError``.
+CUDA tensors on the dense layout. ``"bvh"`` is the Hilbert radix BVH
+(``ops/bvh.bvh_forces``) with ``tree.max_bodies_per_leaf`` bodies a leaf,
+plain torch on the bodies' device.
 """
 
 from __future__ import annotations
@@ -30,12 +31,6 @@ from .config import DEFAULT_GRAVITY, DEFAULT_TREE, GravityConfig, TreeConfig
 from .integrators import euler_step, leapfrog_step
 from .ops.brute_force import kinetic_energy, potential_energy
 from .state import System
-
-# Methods of nbody_tpu.simulation that wait for a later slice of the port.
-_UNPORTED = {
-    "bvh": "ROADMAP queue 1 item 11 (BVH)",
-}
-
 
 def _brute(gravity: GravityConfig, tree: TreeConfig, device: torch.device):
     if device.type == "cuda":
@@ -54,6 +49,12 @@ def _bh(gravity: GravityConfig, tree: TreeConfig, device: torch.device):
                              theta=gravity.theta)
 
 
+def _bvh(gravity: GravityConfig, tree: TreeConfig, device: torch.device):
+    from .ops.bvh import bvh_forces
+    return functools.partial(bvh_forces, config=gravity,
+                             leaf_size=tree.max_bodies_per_leaf)
+
+
 def _fmm(gravity: GravityConfig, tree: TreeConfig, device: torch.device):
     from .ops.fmm import fmm_forces
     return functools.partial(fmm_forces, config=gravity,
@@ -61,7 +62,8 @@ def _fmm(gravity: GravityConfig, tree: TreeConfig, device: torch.device):
 
 
 # method name -> forces(positions, masses) builder
-_FORCE_BUILDERS = {"brute": _brute, "barnes_hut": _bh, "fmm": _fmm}
+_FORCE_BUILDERS = {"brute": _brute, "barnes_hut": _bh, "bvh": _bvh,
+                   "fmm": _fmm}
 
 
 def available_methods():
@@ -86,10 +88,6 @@ class Simulation:
                tree: TreeConfig = DEFAULT_TREE,
                method: str = "brute",
                integrator: str = "leapfrog") -> "Simulation":
-        if method in _UNPORTED:
-            raise NotImplementedError(
-                f"method {method!r} is not ported to PyTorch yet: "
-                f"{_UNPORTED[method]}")
         if method not in _FORCE_BUILDERS:
             raise ValueError(
                 f"unknown method {method!r}; available: {available_methods()}")

@@ -37,16 +37,27 @@ def test_cli_no_files_and_steps(capsys):
     assert "final position of body 0:" in out
 
 
+# Every tier is ported; the guard for a tier left out of PORTED_TIERS is
+# exercised by taking h out again.
 @pytest.mark.parametrize("tiers", ["bh", "ah", "h"])
-def test_cli_unported_tier_exits_2(tiers, capsys):
+def test_cli_unported_tier_exits_2(tiers, capsys, monkeypatch):
+    monkeypatch.setattr(registry, "PORTED_TIERS", "abf")
     assert cli.main(["-m", tiers, "--device", "cpu", "--no-files"]) == 2
     assert "not ported" in capsys.readouterr().err
+    monkeypatch.undo()
+    assert cli.main(["-m", tiers, "--device", "cpu", "--dry-run"]) == 0
+    assert "BVH_Radix" in capsys.readouterr().out
 
 
-def test_cli_default_tiers_leave_out_unported(capsys):
+def test_cli_default_tiers_leave_out_unported(capsys, monkeypatch):
+    assert cli.main(["--device", "cpu", "--dry-run"]) == 0
+    out = capsys.readouterr().out
+    assert "left out" not in out and "BVH_Radix" in out
+    monkeypatch.setattr(registry, "PORTED_TIERS", "abf")
     assert cli.main(["--device", "cpu", "--dry-run"]) == 0
     out = capsys.readouterr().out
     assert "left out" in out and "BruteForce_Torch" in out
+    assert "BVH_Radix" not in out
 
 
 def test_cli_bad_tier_and_gate(capsys):
@@ -69,7 +80,7 @@ def test_registry_gates_cuda_methods_on_the_run_device():
         ["BruteForce_Torch"]
     names = {m.name for m in registry.methods_for_tiers("abhf", "cuda")}
     assert names == {"BruteForce_Torch", "BruteForce_CUDA", "BarnesHut_Grid",
-                     "BarnesHut_Grid_Theta05", "FMM_Chebyshev"}
+                     "BarnesHut_Grid_Theta05", "BVH_Radix", "FMM_Chebyshev"}
     assert [m.name for m in registry.methods_for_tiers("b", "cpu")] == \
         ["BarnesHut_Grid", "BarnesHut_Grid_Theta05"]
     assert registry.get("BruteForce_CUDA").hyperparams(10, 2, None, None) \

@@ -383,7 +383,7 @@ def test_tier_f_hyperparams_match_jax():
                     n, dim, TGravity(), TreeConfig(order=order)) == \
                     jreg.get("FMM_Chebyshev").hyperparams(
                         n, dim, JGravity(), JTree(order=order))
-    assert registry.PORTED_TIERS == "abf"
+    assert registry.PORTED_TIERS == "abhf"
     assert [m.name for m in registry.methods_for_tiers("f", "cpu")] == \
         ["FMM_Chebyshev"]
 

@@ -52,14 +52,18 @@ def test_run_and_energy_match_jax(dim, integrator):
 
 def test_methods_unknown_and_unported():
     _, tsys = shared(n=8)
-    assert available_methods() == ["barnes_hut", "brute", "fmm"]
+    assert available_methods() == ["barnes_hut", "brute", "bvh", "fmm"]
     with pytest.raises(ValueError):
         Simulation.create(tsys, method="magic")
     with pytest.raises(ValueError):
         Simulation.create(tsys, integrator="rk9")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Simulation.create(tsys, method="bvh")
     assert Simulation.create(tsys, method="fmm").method == "fmm"
+    # Every method of the JAX package is ported: "bvh" builds and runs.
+    sim = Simulation.create(tsys, TGravity(**CFG), method="bvh")
+    assert sim.forces_fn.keywords["leaf_size"] == 16
+    ran = sim.run(steps=1, dt=1e-3)
+    assert ran.step_count == 1 and bool(
+        torch.isfinite(ran.system.positions).all())
 
 
 def test_save_load_round_trip(tmp_path):
