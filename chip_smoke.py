@@ -34,7 +34,14 @@ before it and read just after:
   ``Simulation(method="bvh")`` at N = 1e6 2D, the CLI ``-m h`` at 1e5 3D,
   one evaluation at 5e6 2D and the Plummer input with ``caps_state``
   (escalation), against the f64 oracle; its f64 path on the card against
-  the CPU's; its phase times.
+  the CPU's; its phase times;
+* the multi-device tiers (``nbody_tpu_torch.parallel``) on a mesh of 4
+  virtual shards of the card: the Newton-3 ring at N = 2^20 2D (K2 on the
+  self blocks, K3 on the forward tiles), odd and even P, the one-sided and
+  the segmented ring, the sharded Barnes-Hut (1e6 2D) and FMM (1e5 3D)
+  with K6 once a shard, the sharded BVH (1e6 2D), each against its
+  single-device run and the f64 oracle, and the dry run; a mesh of the
+  real cards too where there are several.
 
 It times every kernel against its plain version and gives each its bound
 (the least time the card could take for the same work). Every check raises on
@@ -204,6 +211,30 @@ BVH_F64_TOL = 1e-12
 BVH_TIMED = [(1_000_000, 2), (100_000, 3)]
 BVH_PARLAY_S = {(100_000, 2): 0.256, (100_000, 3): 1.659,
                 (1_000_000, 2): 9.72, (5_000_000, 2): 67.75}
+# [17] The multi-device tiers (parallel/) on MULTI_SHARDS virtual shards of
+# the card (one process; the device repeated in the mesh, as the JAX tests
+# repeat CPU devices), at the single-device phases' shapes: the Newton-3
+# ring at HEADLINE_N 2D against the f64 sum and K1 (K2 one launch per self
+# block, K3 one per forward tile, the even-P half step only on shards
+# b < P/2: the port skips the masked tiles); odd and even P on RING_SMALL
+# (N, P), 3D, a ragged N among them; the one-sided ring at TIMED_N 3D; the
+# segmented ring at TIMED_N 2D with a pair budget that cuts each shard into
+# 2 row chunks; the sharded tiers against their unsharded runs and the f64
+# oracle at [12] / [14] / [16]'s gates; the dry run with the JAX package's
+# gates; a mesh of real cards (at most MULTI_REAL_MAX) where there are
+# several.
+MULTI_SHARDS = 4
+MULTI_REAL_MAX = 4
+MULTI_SEED = 1800
+RING_SMALL = [(5000, 2), (5000, 3), (5000, 8), (4999, 3)]
+SHARDED_BH = (1_000_000, 2, 0.25)
+SHARDED_FMM = (100_000, 3)
+# The f64 sharded FMM against the f64 unsharded one: M2L's row chunks are
+# cuBLAS products of other shapes, rounded otherwise in f64, and L2P's
+# cancellation (term sums up to ~1e4 times the force, see FMM_FAR_ULPS)
+# can raise that to ~1e-12 of the RMS force.
+FMM_SHARDED_F64_TOL = 1e-10
+SHARDED_BVH = (1_000_000, 2, 0.25)
 # The rate probe P: iterations of its plain-version check at the tool's
 # block, the tool's run, and the f32 FMA launch of the kernels line, timed
 # and held beside its plain version.
@@ -1674,10 +1705,250 @@ def phase_times(cb, gen, dev, default, smi) -> dict:
     return t
 
 
+def ring_k3_launches(p: int) -> int:
+    """K3 launches of the Newton-3 ring on P shards: P tiles a forward
+    step, P/2 at the even-P half step."""
+    return p * ((p - 1) // 2) + (p // 2 if p % 2 == 0 else 0)
+
+
+def ring_checks(ring, cb, mesh, gen, dev, default, smi) -> dict:
+    """[17] parts 1-4: the rings on ``mesh``, counted and checked."""
+    from nbody_tpu_torch.parallel import make_mesh
+    from nbody_tpu_torch.state import random_system
+    p = mesh.num_shards
+    out = {}
+    head = random_system(HEADLINE_N, 2, generator=gen, device=dev)
+    pos, mass = head.positions, head.masses
+    print(f"    Newton-3 ring, N={HEADLINE_N} 2D fp32, {p} shards")
+    reset_launches()
+    got = ring.ring_brute_force(pos, mass, default, mesh=mesh)
+    torch.cuda.synchronize()
+    want = {"precise": p, "sym_tile": ring_k3_launches(p), "symmetric": 0}
+    expect_launches(f"ring N={HEADLINE_N} 2D", counts(), want)
+    out["launches"] = want
+    rows = sample_rows(HEADLINE_N, gen, dev)
+    out["max_abs_err"] = check_close(
+        f"ring N={HEADLINE_N} 2D, {SAMPLED_ROWS} sampled rows vs one-sided "
+        "f64 sum", got[rows], oracle64(cb, pos, mass, default, rows))
+    k1 = cb.brute_force_cuda(pos, mass, default, mode="symmetric").double()
+    check_close(f"ring N={HEADLINE_N} 2D vs K1, every body (tol max("
+                f"FORCE_TOL, fp32 floor {fp32_floor(k1):.3e}))", got, k1,
+                tol=max(FORCE_TOL, fp32_floor(k1)))
+    del k1, got
+    out["ring_ms"] = time_ms(lambda: ring.ring_brute_force(
+        pos, mass, default, mesh=mesh))
+    out["k1_ms"] = time_ms(lambda: cb.brute_force_cuda(
+        pos, mass, default, mode="symmetric"))
+    print(f"    ring {out['ring_ms']:.3f} ms vs K1 {out['k1_ms']:.3f} ms "
+          f"(same N, one launch pair), {smi}")
+    del head, pos, mass
+
+    print("    odd and even P, 3D, vs the f64 sum over every body")
+    for n, q in RING_SMALL:
+        b = random_system(n, 3, generator=gen, device=dev)
+        reset_launches()
+        got = ring.ring_brute_force(b.positions, b.masses, default,
+                                    mesh=make_mesh([dev] * q))
+        torch.cuda.synchronize()
+        expect_launches(f"ring N={n} P={q}", counts(),
+                        {"precise": q, "sym_tile": ring_k3_launches(q)})
+        check_close(f"ring N={n} 3D P={q}", got,
+                    oracle64(cb, b.positions, b.masses, default))
+
+    b = random_system(TIMED_N, 3, generator=gen, device=dev)
+    reset_launches()
+    got = ring.ring_brute_force(b.positions, b.masses, default, mesh=mesh,
+                                symmetric=False)
+    torch.cuda.synchronize()
+    expect_launches(f"one-sided ring N={TIMED_N} 3D", counts(),
+                    {"precise": p * p, "sym_tile": 0})
+    rows = sample_rows(TIMED_N, gen, dev)
+    check_close(f"one-sided ring N={TIMED_N} 3D, {SAMPLED_ROWS} rows",
+                got[rows], oracle64(cb, b.positions, b.masses, default,
+                                    rows))
+    out["one_sided_ms_3d"] = time_ms(lambda: ring.ring_brute_force(
+        b.positions, b.masses, default, mesh=mesh, symmetric=False))
+
+    b = random_system(TIMED_N, 2, generator=gen, device=dev)
+    shard = TIMED_N // p
+    budget = shard * (shard // 2)
+    plan = ring.segment_plan(TIMED_N, p, 2, budget)
+    if plan != (shard // 2, 2):
+        raise AssertionError(f"segment plan {plan} != ({shard // 2}, 2)")
+    reset_launches()
+    seg = ring.ring_all_pairs_segmented(b.positions, b.masses, default,
+                                        mesh=mesh, pair_budget=budget)
+    torch.cuda.synchronize()
+    expect_launches(f"segmented ring N={TIMED_N} 2D, 2 chunks a shard",
+                    counts(), {"precise": 2 * p,
+                               "sym_tile": 2 * ring_k3_launches(p)})
+    whole = ring.ring_brute_force(b.positions, b.masses, default,
+                                  mesh=mesh).double()
+    check_close(f"segmented ring N={TIMED_N} 2D vs the unsegmented ring",
+                seg, whole, tol=max(FORCE_TOL, fp32_floor(whole)))
+    out["segmented_ms"] = time_ms(lambda: ring.ring_all_pairs_segmented(
+        b.positions, b.masses, default, mesh=mesh, pair_budget=budget))
+    out["unsegmented_ms"] = time_ms(lambda: ring.ring_brute_force(
+        b.positions, b.masses, default, mesh=mesh))
+    print(f"    one-sided ring N={TIMED_N} 3D {out['one_sided_ms_3d']:.3f} "
+          f"ms; segmented N={TIMED_N} 2D {out['segmented_ms']:.3f} ms vs "
+          f"unsegmented {out['unsegmented_ms']:.3f} ms, {smi}")
+    return out
+
+
+def phase_multi(cb, dev, default, smi) -> dict:
+    """[17] The multi-device tiers on MULTI_SHARDS virtual shards of the
+    card: the rings through K2 and K3, the sharded Barnes-Hut and FMM (K6
+    once a shard), the sharded BVH, each held to its unsharded run and the
+    f64 oracle, and the dry run; then a mesh of real cards, if any."""
+    from nbody_tpu_torch.config import FMM_ORDER
+    from nbody_tpu_torch.ops import bvh, fmm as fm, grid_tree as gt
+    from nbody_tpu_torch.parallel import dryrun, make_mesh, ring
+    from nbody_tpu_torch.parallel import sharded_tree as st
+    from nbody_tpu_torch.state import random_system
+    from nbody_tpu_torch.utils.accuracy import scale_normalized_error
+    t_phase = time.perf_counter()
+    p = MULTI_SHARDS
+    mesh = make_mesh([dev] * p)
+    gen = torch.Generator().manual_seed(MULTI_SEED)
+    print(f"[17] multi-device tiers on a mesh of {p} virtual shards of {dev} "
+          "(one process), timed with CUDA events beside the single-device "
+          f"runs, {smi}")
+    out = {"ring": ring_checks(ring, cb, mesh, gen, dev, default, smi),
+           "times": {}}
+
+    def timed(name, sharded, single, reps=3):
+        row = {"sharded_ms": time_ms(sharded, reps=reps),
+               "single_ms": time_ms(single, reps=reps)}
+        out["times"][name] = row
+        print(f"    {name}: sharded {row['sharded_ms']:.3f} ms, "
+              f"single-device {row['single_ms']:.3f} ms, {smi}")
+
+    # Barnes-Hut, theta = 0.25 (k = 3), the far field per body as in the
+    # JAX package's sharded tier: held to the unsharded tier with the same
+    # far field.
+    n, dim, theta = SHARDED_BH
+    b = random_system(n, dim, generator=gen, device=dev)
+    pos, mass = b.positions, b.masses
+    one = dict(theta=theta, far_impl="point", layout="dense")
+    single = gt.barnes_hut_grid(pos, mass, default, **one)
+    reset_launches()
+    got = st.barnes_hut_sharded(pos, mass, default, mesh=mesh, theta=theta)
+    torch.cuda.synchronize()
+    expect_launches(f"barnes_hut_sharded N={n} {dim}D", counts(),
+                    {"near_field": p, "p2p_leaf": 0})
+    out["bh_launches"] = p
+    s64 = single.double()
+    check_close(f"barnes_hut_sharded N={n} {dim}D theta={theta} vs "
+                "barnes_hut_grid (both fp32)", got, s64,
+                tol=max(1e-5, 2 * fp32_floor(s64, K6_ULPS)))
+    rows = torch.randperm(n, generator=gen)[:BH_ROWS].to(dev)
+    check_close(f"barnes_hut_sharded N={n} {dim}D, {BH_ROWS} rows vs f64 "
+                "oracle", got[rows], oracle64(cb, pos, mass, default, rows),
+                tol=1e-3)
+    timed(f"barnes_hut_{n}_{dim}d_theta{theta}_point",
+          lambda: st.barnes_hut_sharded(pos, mass, default, mesh=mesh,
+                                        theta=theta),
+          lambda: gt.barnes_hut_grid(pos, mass, default, **one))
+    del b, pos, mass, single, got, s64
+
+    # FMM, order 8: fp32 with K6, per body against the unsharded run; f64
+    # against the f64 oracle and the unsharded f64 run.
+    n, dim = SHARDED_FMM
+    order = FMM_ORDER
+    b = random_system(n, dim, generator=gen, device=dev)
+    pos, mass = b.positions, b.masses
+    single = fm.fmm_forces(pos, mass, default, order=order)
+    reset_launches()
+    got = st.fmm_sharded(pos, mass, default, mesh=mesh, order=order)
+    torch.cuda.synchronize()
+    expect_launches(f"fmm_sharded N={n} {dim}D", counts(),
+                    {"near_field": p, "p2p_leaf": 0})
+    out["fmm_launches"] = p
+    L = gt.auto_leaf_level(n, dim)
+    tree = gt.build_grid_tree(pos, mass, L, gt.compute_capacity(pos, L))
+    t64 = tree_f64(gt, tree)
+    gm = (default.G * mass.double())[:, None]
+    a_sh = (got.double() / gm)[tree.order]
+    a_un = (single.double() / gm)[tree.order]
+    a64 = fm.fmm_accel_sorted(t64, order=order, softening=default.softening)
+    rms = float(a64.norm(dim=-1).pow(2).mean().sqrt())
+    near_tol = max(1e-5, fp32_floor(a64, K6_ULPS))
+    far = fmm_far_allowance(fm, t64, order)
+    excess = float(((a_sh - a_un).norm(dim=-1) - 2 * far).max()) / rms
+    print(f"    fmm_sharded N={n} {dim}D fp32 vs fmm_forces fp32, per body: "
+          f"{float((a_sh - a_un).norm(dim=-1).max()) / rms:.3e} of the RMS; "
+          f"beyond twice each body's far allowance {excess:.3e} (tol twice "
+          f"the near floor {2 * near_tol:.3e}), finite "
+          f"{bool(torch.isfinite(got).all())}")
+    if not (bool(torch.isfinite(got).all()) and excess <= 2 * near_tol):
+        raise AssertionError(f"fmm_sharded fp32: {excess} > {2 * near_tol}")
+    rows = torch.randperm(n, generator=gen)[:BH_ROWS].to(dev)
+    want = oracle64(cb, pos, mass, default, rows)
+    reset_launches()
+    got64 = st.fmm_sharded(pos.double(), mass.double(), default, mesh=mesh,
+                           order=order)
+    torch.cuda.synchronize()
+    expect_launches(f"fmm_sharded N={n} {dim}D f64 ('auto': plain near)",
+                    counts(), {"near_field": 0, "p2p_leaf": 0})
+    check_close(f"fmm_sharded N={n} {dim}D f64, {BH_ROWS} rows vs f64 "
+                "oracle", got64[rows], want, tol=FMM_GATE)
+    check_close(f"fmm_sharded N={n} {dim}D f64 vs fmm_forces f64", got64,
+                fm.fmm_forces(pos.double(), mass.double(), default,
+                              order=order), tol=FMM_SHARDED_F64_TOL)
+    timed(f"fmm_{n}_{dim}d_order{order}",
+          lambda: st.fmm_sharded(pos, mass, default, mesh=mesh, order=order),
+          lambda: fm.fmm_forces(pos, mass, default, order=order))
+    del b, pos, mass, single, got, got64, tree, t64, a64, a_sh, a_un, far
+
+    # BVH, theta = 0.25 quad, groups of 1024 (plain torch: no launch).
+    n, dim, theta = SHARDED_BVH
+    b = random_system(n, dim, generator=gen, device=dev)
+    pos, mass = b.positions, b.masses
+    single = bvh.bvh_forces(pos, mass, default, theta=theta)
+    reset_launches()
+    got = st.bvh_sharded(pos, mass, default, mesh=mesh, theta=theta)
+    torch.cuda.synchronize()
+    expect_launches(f"bvh_sharded N={n} {dim}D", counts(),
+                    {k: 0 for k in counts()})
+    s64 = single.double()
+    check_close(f"bvh_sharded N={n} {dim}D theta={theta} vs bvh_forces "
+                "(both fp32)", got, s64, tol=max(1e-5, fp32_floor(s64)))
+    rows = torch.randperm(n, generator=gen)[:BH_ROWS].to(dev)
+    check_close(f"bvh_sharded N={n} {dim}D, {BH_ROWS} rows vs f64 oracle",
+                got[rows], oracle64(cb, pos, mass, default, rows),
+                tol=BVH_TOL)
+    timed(f"bvh_{n}_{dim}d_theta{theta}",
+          lambda: st.bvh_sharded(pos, mass, default, mesh=mesh, theta=theta),
+          lambda: bvh.bvh_forces(pos, mass, default, theta=theta), reps=1)
+    del b, pos, mass, single, got, s64
+
+    print(f"    dryrun_multichip on {p} virtual shards")
+    out["dryrun"] = dryrun.dryrun_multichip(mesh, log=lambda m: print(
+        "    " + m))
+    count = torch.cuda.device_count()
+    if count > 1:
+        real = make_mesh([torch.device("cuda", i)
+                          for i in range(min(count, MULTI_REAL_MAX))])
+        print(f"    a mesh of {real.num_shards} real cards: the rings and "
+              "the dry run")
+        out["real"] = ring_checks(ring, cb, real, gen, dev, default, smi)
+        out["real"]["dryrun"] = dryrun.dryrun_multichip(
+            real, log=lambda m: print("    " + m))
+    else:
+        print(f"    {count} CUDA device: no mesh of real cards to run; the "
+              f"virtual mesh above is what [17] asserts")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"    [17] took {out['seconds']:.1f} s")
+    return out
+
+
 def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, fmm, pr,
-                 ptxas) -> list:
+                 ptxas, multi) -> list:
     """The kernels JSON line: every kernel with its launches on its path,
-    its error against its plain version, its times and its bound."""
+    its error against its plain version, its times and its bound; K2, K3
+    and K6 also with their launches on [17]'s multi-device paths (the
+    paths' own times are in :func:`multi_line`)."""
     from nbody_tpu_torch.tools import microbench as mb
     # Bounds from the JAX kernels' own operation counts per pair
     # (pallas_brute.py:256, :331, :338, :686, :963; pallas_p2p.py:89), on
@@ -1712,6 +1983,7 @@ def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, fmm, pr,
 
     timed_at = f"N={TIMED_N} 2D fp32"
     big = t["big"]
+    ring_launches = multi["ring"]["launches"]
     kernels = [
         {"name": "K1 symmetric (Newton-3 block pairs)", "route": "cuda",
          "source": "nbody_tpu_torch/csrc/symmetric.cu",
@@ -1729,8 +2001,9 @@ def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, fmm, pr,
          "replaces": "nbody_tpu/ops/pallas_brute.py:78",
          "launches": launches["precise"], "max_abs_err": k2_err,
          "ms": t["K2"], "plain_ms": t["K2_plain"], "timed_at": timed_at,
-         "ms_n1048576_2d": big["precise"], **bounds["K2"],
-         "library_ms": None},
+         "ms_n1048576_2d": big["precise"],
+         "ring_launches": ring_launches["precise"],
+         "ring_shards": MULTI_SHARDS, **bounds["K2"], "library_ms": None},
         {"name": "K3 sym tile (Newton-3 rectangle, segmented driver)",
          "route": "cuda", "source": "nbody_tpu_torch/csrc/sym_tile.cu",
          "replaces": "nbody_tpu/ops/pallas_brute.py:497",
@@ -1738,6 +2011,7 @@ def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, fmm, pr,
          "ms": t["K3"], "plain_ms": t["K3_plain"],
          "timed_at": f"{TIMED_N} x {TIMED_N} 2D fp32 cross tile",
          "segmented_ms_n2e6_2d": t["segmented_2e6"],
+         "ring_launches": ring_launches["sym_tile"],
          "ms_n262144_3d": t["K3_3d"],
          "bound_ms_n262144_3d": bounds["K3_3d"]["bound_ms"],
          "ptxas": {k: v for k, v in n3_ptxas.items()
@@ -1772,6 +2046,8 @@ def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, fmm, pr,
          "launches": bh["launches"] + fmm["launches"],
          "launches_by_path": {"barnes_hut": bh["launches"],
                               "fmm": fmm["launches"]},
+         "sharded_launches": {"barnes_hut": multi["bh_launches"],
+                              "fmm": multi["fmm_launches"]},
          "max_abs_err": k6["max_abs_err"],
          "ms": bh["k6_ms"], "plain_ms": bh["k6_plain_ms"],
          "timed_at": "one launch of the path, N=1e6 2D theta=0.25, every "
@@ -1824,6 +2100,20 @@ def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, fmm, pr,
          **p_bounds[128], "library_ms": mm[128]["library_ms"]},
     ]
     return kernels
+
+
+def multi_line(multi, smi) -> dict:
+    """[17]'s paths as whole runs on MULTI_SHARDS virtual shards, each
+    beside its single-device comparator from the same run: the rings
+    (K2 and K3 launches together) and the sharded tiers."""
+    ring = multi["ring"]
+    return {"shards": MULTI_SHARDS, "card": smi,
+            "ring_ms_n1048576_2d": ring["ring_ms"],
+            "k1_ms_n1048576_2d": ring["k1_ms"],
+            "one_sided_ring_ms_n262144_3d": ring["one_sided_ms_3d"],
+            "segmented_ring_ms_n262144_2d": ring["segmented_ms"],
+            "unsegmented_ring_ms_n262144_2d": ring["unsegmented_ms"],
+            "tiers": multi["times"]}
 
 
 def main() -> int:
@@ -2002,10 +2292,12 @@ def main() -> int:
     fmm = phase_fmm(cb, seeded(14), dev, default, smi)
     sparse = phase_sparse(cb, seeded(15), dev, default, smi)
     phase_bvh(cb, dev, default, smi, sparse)
+    multi = phase_multi(cb, dev, default, smi)
 
     kernels = kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh,
-                           fmm, pr, ptxas)
-    print(f"chip_smoke: phases [1]-[16] in {time.perf_counter() - t_run:.1f} s")
+                           fmm, pr, ptxas, multi)
+    print(f"chip_smoke: phases [1]-[17] in {time.perf_counter() - t_run:.1f} s")
+    print(json.dumps({"multi_device": multi_line(multi, smi)}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -9,13 +9,17 @@ force, b = Barnes-Hut, h = BVH, f = FMM. All four are ported:
 * ``BarnesHut_Grid`` (θ from the configuration) and
   ``BarnesHut_Grid_Theta05`` — the grid tree, its near field on the K6
   kernel for CUDA tensors, with the JAX package's hyperparameters.
-  (``BarnesHut_Sharded`` is multi-device: ROADMAP queue 1 item 12.)
 * ``BVH_Radix`` — the Hilbert radix BVH, quadrupole far field, with the
-  JAX package's hyperparameters (``BVH_Sharded``: item 12).
+  JAX package's hyperparameters.
 * ``FMM_Chebyshev`` — the black-box FMM at order ``min(order, 8)``, its
   dense near field on K6 for fp32 CUDA tensors.
+* ``BruteForce_Ring``, ``BarnesHut_Sharded``, ``FMM_Sharded`` and
+  ``BVH_Sharded`` — the multi-device tiers of ``parallel/`` on the default
+  mesh (every visible CUDA device), as the JAX package registers them.
 
-``cuda_only`` methods run only when the run's device is CUDA.
+``cuda_only`` methods run only when the run's device is CUDA;
+``multi_device_only`` ones are listed only where the default mesh has more
+than one shard (the JAX package: more than one device).
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ class Method:
     tier: str  # 'a' | 'b' | 'h' | 'f'
     fn: MethodFn
     cuda_only: bool = False
+    multi_device_only: bool = False
     hyper: Optional[HyperFn] = None
 
     def hyperparams(self, n: int, dim: int, cfg: GravityConfig,
@@ -53,10 +58,13 @@ _REGISTRY: Dict[str, Method] = {}
 
 
 def register(name: str, tier: str, cuda_only: bool = False,
+             multi_device_only: bool = False,
              hyper: Optional[HyperFn] = None):
     def deco(fn: MethodFn) -> MethodFn:
         _REGISTRY[name] = Method(name=name, tier=tier, fn=fn,
-                                 cuda_only=cuda_only, hyper=hyper)
+                                 cuda_only=cuda_only,
+                                 multi_device_only=multi_device_only,
+                                 hyper=hyper)
         return fn
     return deco
 
@@ -68,9 +76,12 @@ def get(name: str) -> Method:
 def methods_for_tiers(tiers: str, device):
     """Registered methods whose tier letter is in ``tiers``, for a run on
     ``device``."""
+    from ..parallel.mesh import default_num_shards
     on_cuda = torch.device(device).type == "cuda"
+    multi = default_num_shards() > 1
     return [m for m in _REGISTRY.values()
-            if m.tier in tiers and (on_cuda or not m.cuda_only)]
+            if m.tier in tiers and (on_cuda or not m.cuda_only)
+            and (multi or not m.multi_device_only)]
 
 
 # --- Tier a: brute force -----------------------------------------------------
@@ -88,6 +99,12 @@ def _bf_torch(pos, mass, cfg, tree_cfg):
 def _bf_cuda(pos, mass, cfg, tree_cfg):
     from ..ops.cuda_brute import brute_force_cuda
     return brute_force_cuda(pos, mass, cfg, mode="symmetric")
+
+
+@register("BruteForce_Ring", "a", cuda_only=True, multi_device_only=True)
+def _bf_ring(pos, mass, cfg, tree_cfg):
+    from ..parallel.ring import ring_brute_force
+    return ring_brute_force(pos, mass, cfg)
 
 
 # --- Tier b: Barnes-Hut ------------------------------------------------------
@@ -113,7 +130,26 @@ def _bh_grid_05(pos, mass, cfg, tree_cfg):
     return barnes_hut_grid(pos, mass, cfg, theta=0.5)
 
 
+@register("BarnesHut_Sharded", "b", cuda_only=True, multi_device_only=True)
+def _bh_sharded(pos, mass, cfg, tree_cfg):
+    from ..parallel.sharded_tree import barnes_hut_sharded
+    return barnes_hut_sharded(pos, mass, cfg, theta=0.5)
+
+
+@register("FMM_Sharded", "f", cuda_only=True, multi_device_only=True)
+def _fmm_sharded(pos, mass, cfg, tree_cfg):
+    from ..parallel.sharded_tree import fmm_sharded
+    return fmm_sharded(pos, mass, cfg, order=min(tree_cfg.order, 8))
+
+
 # --- Tier h: Hilbert BVH -----------------------------------------------------
+
+@register("BVH_Sharded", "h", cuda_only=True, multi_device_only=True)
+def _bvh_sharded(pos, mass, cfg, tree_cfg):
+    from ..parallel.sharded_tree import bvh_sharded
+    return bvh_sharded(pos, mass, cfg,
+                       leaf_size=tree_cfg.max_bodies_per_leaf)
+
 
 def _bvh_hyper(n, d, c, t):
     from ..ops.bvh import resolve_bvh_far_impl

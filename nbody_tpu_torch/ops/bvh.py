@@ -50,8 +50,13 @@ What differs from the JAX package, and why:
   do not depend on the sub-batch.
 * ``lax.map`` over batches and quad-query blocks is a Python loop over the
   same batches and blocks.
-* The sharded arguments (``shard_axis``, ``num_shards``, ``varying_axis``)
-  are not ported yet (ROADMAP queue 1 item 12).
+* Sharding takes ``shard_index`` and ``num_shards`` where the JAX package
+  takes ``shard_axis`` under ``shard_map``: shard r walks groups [r·gp,
+  (r+1)·gp), gp = ⌈groups/P⌉, and returns its rows in an [N, D] partial,
+  zero elsewhere, for the caller to add. The JAX program pads the groups
+  to gp·P with groups at the origin whose rows lie past N; the port walks
+  only the real groups. ``varying_axis`` (a ``shard_map`` typing detail)
+  has no counterpart.
 """
 
 from __future__ import annotations
@@ -466,6 +471,8 @@ def bvh_accel_sorted(tree: BVHTree, leaf_size: int = 16, theta: float = 0.25,
                      local_gate: float = 8.0,
                      group_ids: Optional[torch.Tensor] = None,
                      source: Optional[tuple] = None,
+                     shard_index: Optional[int] = None,
+                     num_shards: int = 1,
                      _debug_skip: str = ""):
     """Accelerations on every sorted body (not G-scaled): [N, D].
 
@@ -477,9 +484,19 @@ def bvh_accel_sorted(tree: BVHTree, leaf_size: int = 16, theta: float = 0.25,
     ``return_stats`` adds (max frontier, max near count, per-group
     overflow). ``far_impl="local"`` sends accepted nodes farther than
     ``local_gate`` group radii into an order-2 local expansion at the group
-    centre. ``_debug_skip`` containing ``"far"`` or ``"near"`` leaves out
-    the inline far field or pass 2 (phase timing).
+    centre. With ``num_shards`` > 1 the call walks shard ``shard_index``'s
+    groups (module docstring) and returns [N, D] with zero rows outside
+    them (``return_stats`` then covers those groups); ``group_ids`` cannot
+    be combined with it. ``_debug_skip`` containing ``"far"`` or ``"near"``
+    leaves out the inline far field or pass 2 (phase timing).
     """
+    if num_shards > 1 and group_ids is not None:
+        raise ValueError("group_ids is a single-device escalation path and "
+                         "cannot be combined with sharding")
+    if num_shards > 1 and (shard_index is None
+                           or not 0 <= shard_index < num_shards):
+        raise ValueError(f"shard_index must be in [0, {num_shards}) when "
+                         f"num_shards > 1, got {shard_index!r}")
     n = tree.n
     dim = tree.pos_sorted.shape[-1]
     dtype = tree.pos_sorted.dtype
@@ -626,11 +643,25 @@ def bvh_accel_sorted(tree: BVHTree, leaf_size: int = 16, theta: float = 0.25,
         acc = torch.where(overflow[:, None, None], float("nan"), acc)
         return acc, maxw, near_cnt, overflow
 
+    g0 = 0
     if group_ids is not None:
         gids = torch.as_tensor(group_ids, device=dev).to(torch.int64)\
             .clamp(0, ngroups - 1)
         gpos, gcenter, gradius = gpos[gids], gcenter[gids], gradius[gids]
         my_groups = gids.shape[0]
+    elif num_shards > 1:
+        gp = -(-ngroups // num_shards)
+        g0, g1 = min(shard_index * gp, ngroups), min((shard_index + 1) * gp,
+                                                     ngroups)
+        gpos, gcenter, gradius = gpos[g0:g1], gcenter[g0:g1], gradius[g0:g1]
+        my_groups = g1 - g0
+        if my_groups == 0:
+            acc = pos_pad.new_zeros((n, dim))
+            if not return_stats:
+                return acc
+            zero = torch.zeros((), dtype=torch.int64, device=dev)
+            return acc, zero, zero, torch.zeros((0,), dtype=torch.bool,
+                                                device=dev)
     else:
         my_groups = ngroups
 
@@ -647,7 +678,13 @@ def bvh_accel_sorted(tree: BVHTree, leaf_size: int = 16, theta: float = 0.25,
                       gradius[b0:b0 + batch])
             for b0 in range(0, nb * batch, batch)]
     acc = torch.cat([o[0] for o in outs]).reshape(-1, dim)[:my_groups * G]
-    if group_ids is None:
+    if num_shards > 1:
+        b0 = g0 * G
+        b1 = min(b0 + my_groups * G, n)
+        full = acc.new_zeros((n, dim))
+        full[b0:b1] = acc[:b1 - b0]
+        acc = full
+    elif group_ids is None:
         acc = acc[:n]
     if not return_stats:
         return acc

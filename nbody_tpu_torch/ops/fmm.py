@@ -37,9 +37,18 @@ What differs from the JAX package, and why:
 * Accuracy-bearing products must not run in TF32: on CUDA tensors
   :func:`fmm_forces` and :func:`fmm_accel_sorted` raise while
   ``torch.backends.cuda.matmul.allow_tf32`` is on.
-* ``compute_capacity_cached`` is dropped (torch tensors are mutable); the
-  sharded evaluation (``shard_axis``) is not ported yet (ROADMAP queue 1
-  item 12).
+* ``compute_capacity_cached`` is dropped (torch tensors are mutable).
+* Sharding: the JAX program runs under ``shard_map`` with two
+  ``all_gather``s in its middle. One process runs it as stages over P
+  shards (:func:`fmm_shard_partials`, the one code path; unsharded is P =
+  1): P2M of each shard's leaf chunk, then gather; M2M once per device;
+  M2L of each shard's cell rows at every level with at least P cells, then
+  gather, the coarser levels once per device; L2L once per device; L2P and
+  P2P of each shard's leaf chunk, its partial zero elsewhere. The caller
+  adds the partials. ``fmm_accel_sorted(shard_index=r, num_shards=P)``
+  returns shard r's partial of the same stages on one tree. L2P runs only
+  over the shard's bodies, where the JAX program runs every body and
+  zeroes the others.
 """
 
 from __future__ import annotations
@@ -52,11 +61,12 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_GRAVITY, GravityConfig
+from ..utils.device_mesh import Mesh
 from .grid_tree import (GridTree, _clipped_ids, _in_bounds, _near_field_accel,
                         _resolve_p2p_impl, _window_rows, auto_leaf_level,
                         build_grid_tree, cell_coords, check_grid_capacity,
                         chunk_table, compute_capacity,
-                        dense_layout_degenerate)
+                        dense_layout_degenerate, shard_leaves)
 
 # Bytes of one M2L chunk of gathered source weights [cells, chunk·n^D].
 _M2L_GATHER_BYTES = 1 << 30
@@ -216,16 +226,19 @@ def _anterpolate(pos, mass, valid, centers, half, order, Tt):
 
 
 def _p2m_dense(tree: GridTree, order: int, leaf_batch: int,
-               Tt: torch.Tensor) -> torch.Tensor:
-    """Leaf node weights [num_leaves, n^D] from each leaf's contiguous run
+               Tt: torch.Tensor, leaf0: int = 0,
+               nleaves: Optional[int] = None) -> torch.Tensor:
+    """Node weights [nleaves, n^D] of leaves [leaf0, leaf0 + nleaves) (by
+    default every leaf) from each leaf's contiguous run
     (``grid_tree._window_rows``), ``leaf_batch`` leaves at a time."""
-    dim, nl = tree.dim, tree.num_leaf_cells
+    dim = tree.dim
+    nl = tree.num_leaf_cells - leaf0 if nleaves is None else nleaves
     dev = tree.pos_sorted.device
     half = _leaf_half(tree)
     lb = min(leaf_batch, nl)
     out = tree.pos_sorted.new_empty((nl, order ** dim))
     for b0 in range(0, nl, lb):
-        ids = torch.arange(b0, min(b0 + lb, nl), device=dev)
+        ids = torch.arange(leaf0 + b0, leaf0 + min(b0 + lb, nl), device=dev)
         tb, _, valid = _window_rows(tree, ids)  # [B, TWR, 4]
         out[b0:b0 + ids.numel()] = _anterpolate(
             tb[..., :dim], tb[..., 3] * valid, valid,
@@ -297,41 +310,53 @@ def _m2l_kernel_t(tree: GridTree, order: int, deltas) -> torch.Tensor:
     return d2.sqrt_().reciprocal_().reshape(-1, nodes.shape[0])
 
 
-def _m2l(tree: GridTree, W: dict, order: int, k: int) -> dict:
-    """V-list transfers: local weights [cells_l, n^D] of every level 2..L,
-    not yet passed down (:func:`_l2l`)."""
-    dim, L = tree.dim, tree.leaf_level
+def _m2l_operators(tree: GridTree, order: int, k: int):
+    """(offsets [nd, D], per-offset parity masks [nd, D, 2], stacked Kᵀ)
+    of M2L, on the tree's device."""
     dev = tree.pos_sorted.device
-    nD = order ** dim
-    if L < 2:
-        return {}
-    deltas = _v_list_deltas(dim, k)
+    deltas = _v_list_deltas(tree.dim, k)
     dl = torch.as_tensor(np.stack([d for d, _ in deltas]), device=dev)\
         .to(torch.int64)
     par_ok = torch.as_tensor(np.stack([p for _, p in deltas]), device=dev)
-    KT = _m2l_kernel_t(tree, order, deltas)
-    elsize = KT.element_size()
-    Lc = {}
-    for l in range(2, L + 1):
-        ncells = 1 << (dim * l)
-        xy = cell_coords(torch.arange(ncells, device=dev), dim)
-        parity = xy & 1
-        w_l = W[l]
-        acc = w_l.new_zeros((ncells, nD))
-        step = max(1, min(len(deltas),
-                          _M2L_GATHER_BYTES // (ncells * nD * elsize)))
-        for j0 in range(0, len(deltas), step):
-            j1 = min(j0 + step, len(deltas))
-            src_xy = xy[:, None, :] + dl[None, j0:j1, :]  # [cells, c, D]
-            ok = _in_bounds(src_xy, l)
-            for d in range(dim):
-                ok &= par_ok[j0:j1, d, :].T[parity[:, d]]
-            g = w_l[_clipped_ids(src_xy, l, dim, (ncells, -1))]
-            g.mul_(ok[..., None])
-            acc += g.reshape(ncells, -1) @ KT[j0 * nD:j1 * nD]
-            del g
-        Lc[l] = acc.mul_(2.0 ** -(L - l))  # K_l = K_L·2^-(L-l), exact
-    return Lc
+    return dl, par_ok, _m2l_kernel_t(tree, order, deltas)
+
+
+def _m2l_level(tree: GridTree, w_l: torch.Tensor, ops, l: int,
+               row0: int = 0, nrows: Optional[int] = None) -> torch.Tensor:
+    """Level l's V-list transfers into cell rows [row0, row0 + nrows) (by
+    default every cell): local weights [nrows, n^D], not yet passed down."""
+    dim, L = tree.dim, tree.leaf_level
+    dl, par_ok, KT = ops
+    nD = w_l.shape[1]
+    ncells = (1 << (dim * l)) - row0 if nrows is None else nrows
+    xy = cell_coords(torch.arange(row0, row0 + ncells, device=w_l.device),
+                     dim)
+    parity = xy & 1
+    acc = w_l.new_zeros((ncells, nD))
+    nd = dl.shape[0]
+    step = max(1, min(nd, _M2L_GATHER_BYTES
+                      // (ncells * nD * KT.element_size())))
+    for j0 in range(0, nd, step):
+        j1 = min(j0 + step, nd)
+        src_xy = xy[:, None, :] + dl[None, j0:j1, :]  # [cells, c, D]
+        ok = _in_bounds(src_xy, l)
+        for d in range(dim):
+            ok &= par_ok[j0:j1, d, :].T[parity[:, d]]
+        g = w_l[_clipped_ids(src_xy, l, dim, (ncells, -1))]
+        g.mul_(ok[..., None])
+        acc += g.reshape(ncells, -1) @ KT[j0 * nD:j1 * nD]
+        del g
+    return acc.mul_(2.0 ** -(L - l))  # K_l = K_L·2^-(L-l), exact
+
+
+def _m2l(tree: GridTree, W: dict, order: int, k: int) -> dict:
+    """V-list transfers: local weights [cells_l, n^D] of every level 2..L,
+    not yet passed down (:func:`_l2l`)."""
+    if tree.leaf_level < 2:
+        return {}
+    ops = _m2l_operators(tree, order, k)
+    return {l: _m2l_level(tree, W[l], ops, l)
+            for l in range(2, tree.leaf_level + 1)}
 
 
 def _l2l(Lc: dict, m2m: torch.Tensor, L: int, nl: int,
@@ -346,22 +371,25 @@ def _l2l(Lc: dict, m2m: torch.Tensor, L: int, nl: int,
 
 
 def _l2p(tree: GridTree, L_leaf: torch.Tensor, order: int,
-         Tt: torch.Tensor) -> torch.Tensor:
-    """Far-field accelerations [N, D] of the sorted bodies: the gradient of
-    the leaf interpolant, in blocks of ``_L2P_BLOCK`` bodies."""
-    dim, n = tree.dim, tree.n
+         Tt: torch.Tensor, b0: int = 0,
+         b1: Optional[int] = None) -> torch.Tensor:
+    """Far-field accelerations [b1 − b0, D] of sorted bodies [b0, b1) (by
+    default all): the gradient of the leaf interpolant, in blocks of
+    ``_L2P_BLOCK`` bodies."""
+    dim = tree.dim
+    b1 = tree.n if b1 is None else b1
     half = _leaf_half(tree)
     centers = _cell_centers(tree, torch.arange(tree.num_leaf_cells,
                                                device=L_leaf.device))
-    out = tree.pos_sorted.new_empty((n, dim))
-    for b0 in range(0, n, _L2P_BLOCK):
-        sl = slice(b0, b0 + _L2P_BLOCK)
+    out = tree.pos_sorted.new_empty((b1 - b0, dim))
+    for i0 in range(b0, b1, _L2P_BLOCK):
+        sl = slice(i0, min(i0 + _L2P_BLOCK, b1))
         body_leaf = tree.leaf_ids[sl]
         lw = L_leaf[body_leaf]  # [B, n^D]
         y = (tree.pos_sorted[sl] - centers[body_leaf]) / half
         s, ds = _interp_and_grad_1d(order, y, Tt)  # [B, D, n]
         s, ds = s.unbind(1), ds.unbind(1)
-        out[sl] = torch.stack([
+        out[i0 - b0:sl.stop - b0] = torch.stack([
             (_outer_basis([ds[d2] if d2 == d else s[d2]
                            for d2 in range(dim)]) * lw).sum(-1) / half[d]
             for d in range(dim)], dim=-1)
@@ -390,9 +418,106 @@ def _near_sparse(tree: GridTree, chunks, chunk_size: int, k: int,
     return torch.cat(accs).reshape(-1, dim)[idx]
 
 
+def _leaf_bodies(tree: GridTree, leaf0: int, nleaves: int):
+    """Sorted-body range [b0, b1) of leaves [leaf0, leaf0 + nleaves)."""
+    if leaf0 == 0 and nleaves == tree.num_leaf_cells:
+        return 0, tree.n
+    last = leaf0 + nleaves - 1
+    b0, b1 = torch.stack([tree.cell_start[leaf0], tree.cell_start[last]
+                          + tree.cell_count[last]]).tolist()
+    return int(b0), int(b1)
+
+
+def fmm_shard_partials(trees, mesh: Optional[Mesh] = None, order: int = 5,
+                       ring: int = 1, softening: float = 0.0,
+                       leaf_batch: int = 1024, p2p_impl: str = "plain",
+                       _debug_skip: str = "", shards=None,
+                       num_chunks: Optional[int] = None,
+                       chunk_size: int = 64, window: int = 8,
+                       max_windows: int = 0) -> list:
+    """The FMM's stages over the P shards of ``mesh`` (module docstring;
+    default: P = ``len(trees)`` virtual shards of the tree's device):
+    ``trees[r]`` is shard r's copy of one tree on its device, shared by the
+    shards of that device (``Mesh.replicate``). Returns the partials [N, D]
+    of the shards in ``shards`` (default all), each on its shard's device
+    and zero outside its leaf chunk; their sum is the evaluation."""
+    tree = trees[0]
+    if mesh is None:
+        mesh = Mesh((tree.pos_sorted.device,) * len(trees))
+    p = mesh.num_shards
+    dim, L, nl = tree.dim, tree.leaf_level, tree.num_leaf_cells
+    dt = tree.pos_sorted.dtype
+    _check_matmul_precision(tree.pos_sorted)
+    sparse = num_chunks is not None
+    if sparse and p > 1:
+        raise ValueError("the sparse FMM layout is single-device; shard a "
+                         "clustered input another way")
+    shards = range(p) if shards is None else shards
+    spans = [shard_leaves(nl, r if p > 1 else None, p) for r in range(p)]
+    tables = mesh.per_device(lambda r: _tables(
+        dim, order, dt, trees[r].pos_sorted.device))
+
+    # P2M of each shard's leaf chunk, then gather; M2M once per device.
+    if sparse:
+        chunks = _sparse_chunks(tree, num_chunks, chunk_size, leaf_batch)
+        W_leaf = [_p2m_sparse(tree, order, chunks, chunk_size,
+                              tables[0][0])]
+    else:
+        W_leaf = mesh.all_gather(mesh.per_shard(lambda r: _p2m_dense(
+            trees[r], order, leaf_batch, tables[r][0], *spans[r])))
+    W = mesh.per_device(lambda r: _m2m(W_leaf[r], tables[r][1], dim, L))
+
+    # M2L: a level of at least P cells by each shard's rows, then gather;
+    # the coarser levels once per device.
+    Lc = [dict() for _ in range(p)]
+    if L >= 2 and "m2l" in _debug_skip:
+        for r in range(p):
+            Lc[r] = {l: W[r][l].new_zeros(W[r][l].shape)
+                     for l in range(2, L + 1)}
+    elif L >= 2:
+        ops = mesh.per_device(lambda r: _m2l_operators(trees[r], order,
+                                                       ring))
+        for l in range(2, L + 1):
+            ncells = 1 << (dim * l)
+            if p > 1 and ncells >= p:
+                mc = ncells // p
+                rows = mesh.all_gather(mesh.per_shard(lambda r: _m2l_level(
+                    trees[r], W[r][l], ops[r], l, r * mc, mc)))
+            else:
+                rows = mesh.per_device(lambda r: _m2l_level(
+                    trees[r], W[r][l], ops[r], l))
+            for r in range(p):
+                Lc[r][l] = rows[r]
+    L_leaf = mesh.per_device(lambda r: _l2l(Lc[r], tables[r][1], L, nl,
+                                            W_leaf[r]))
+
+    # L2P and P2P of each shard's leaf chunk.
+    out = []
+    for r in shards:
+        t, (leaf0, ml) = trees[r], spans[r]
+        with mesh.device_context(r):
+            if "l2p" in _debug_skip:
+                acc = t.pos_sorted.new_zeros((t.n, dim))
+            else:
+                b0, b1 = _leaf_bodies(t, leaf0, ml)
+                acc = _l2p(t, L_leaf[r], order, tables[r][0], b0, b1)
+                if b1 - b0 < t.n:  # zero rows around the shard's bodies
+                    acc = torch.nn.functional.pad(acc, (0, 0, b0, t.n - b1))
+            if "p2p" not in _debug_skip and sparse:
+                acc = acc + _near_sparse(t, chunks, chunk_size, ring, window,
+                                         max_windows, softening)
+            elif "p2p" not in _debug_skip:
+                acc = acc + _near_field_accel(
+                    t, ring, softening,
+                    _resolve_p2p_impl(p2p_impl, t.pos_sorted.device),
+                    leaf0, ml, leaf_batch)
+        out.append(acc)
+    return out
+
+
 def fmm_accel_sorted(tree: GridTree, order: int = 5, ring: int = 1,
                      softening: float = 0.0, leaf_batch: int = 1024,
-                     shard_axis: Optional[str] = None,
+                     shard_index: Optional[int] = None, num_shards: int = 1,
                      p2p_impl: str = "plain", _debug_skip: str = "",
                      num_chunks: Optional[int] = None, chunk_size: int = 64,
                      window: int = 8, max_windows: int = 0) -> torch.Tensor:
@@ -403,42 +528,22 @@ def fmm_accel_sorted(tree: GridTree, order: int = 5, ring: int = 1,
     layout of ``ops/sparse_grid.py``: targets are cell-aligned chunks of
     ``chunk_size`` bodies and P2P sources are ``window``-body windows over
     the ring runs (``max_windows`` of them at most), so no tensor scales
-    with the max leaf occupancy; M2M, M2L, L2L and L2P are unchanged.
+    with the max leaf occupancy; M2M, M2L, L2L and L2P are unchanged. It is
+    single-device. With ``num_shards`` > 1 the call returns shard
+    ``shard_index``'s partial (:func:`fmm_shard_partials` on this one tree:
+    P2M and M2L of every shard, L2P and P2P of this one's leaf chunk). Each
+    such call recomputes every shard's P2M and M2L, so P calls for the P
+    shards do those stages P times: to evaluate every shard, call
+    :func:`fmm_shard_partials` (as ``parallel.fmm_sharded`` does).
     ``_debug_skip`` containing ``"m2l"``, ``"l2p"`` or ``"p2p"`` skips that
     phase (phase timing).
     """
-    if shard_axis is not None:
-        raise NotImplementedError(
-            "fmm_accel_sorted(shard_axis=...): the sharded FMM is not ported "
-            "to PyTorch yet (ROADMAP queue 1 item 12)")
-    _check_matmul_precision(tree.pos_sorted)
-    dim, L = tree.dim, tree.leaf_level
-    dt, dev = tree.pos_sorted.dtype, tree.pos_sorted.device
-    Tt, m2m = _tables(dim, order, dt, dev)
-    sparse = num_chunks is not None
-    if sparse:
-        chunks = _sparse_chunks(tree, num_chunks, chunk_size, leaf_batch)
-        W_leaf = _p2m_sparse(tree, order, chunks, chunk_size, Tt)
-    else:
-        W_leaf = _p2m_dense(tree, order, leaf_batch, Tt)
-    W = _m2m(W_leaf, m2m, dim, L)
-    if "m2l" in _debug_skip:
-        Lc = {l: W[l].new_zeros(W[l].shape) for l in range(2, L + 1)}
-    else:
-        Lc = _m2l(tree, W, order, ring)
-    L_leaf = _l2l(Lc, m2m, L, tree.num_leaf_cells, W_leaf)
-    if "l2p" in _debug_skip:
-        acc = tree.pos_sorted.new_zeros((tree.n, dim))
-    else:
-        acc = _l2p(tree, L_leaf, order, Tt)
-    if "p2p" in _debug_skip:
-        return acc
-    if sparse:
-        return acc + _near_sparse(tree, chunks, chunk_size, ring, window,
-                                  max_windows, softening)
-    p2p_impl = _resolve_p2p_impl(p2p_impl, dev)
-    return acc + _near_field_accel(tree, ring, softening, p2p_impl, 0,
-                                   tree.num_leaf_cells, leaf_batch)
+    shard_leaves(tree.num_leaf_cells, shard_index, num_shards)  # checks
+    return fmm_shard_partials(
+        [tree] * num_shards, order=order, ring=ring, softening=softening,
+        leaf_batch=leaf_batch, p2p_impl=p2p_impl, _debug_skip=_debug_skip,
+        shards=[shard_index or 0], num_chunks=num_chunks,
+        chunk_size=chunk_size, window=window, max_windows=max_windows)[0]
 
 
 def fmm_forces(

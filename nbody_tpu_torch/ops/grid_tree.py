@@ -35,7 +35,10 @@ What differs from the JAX package, and why:
 * The sparse build's scatter-adds (``.at[cell].add``) are ``index_add_``:
   a cell's chunks are summed locally, never as a cumsum difference. On CUDA
   its float order is not fixed from run to run.
-* The sharded evaluation (``shard_axis``) is not ported yet.
+* The sharded evaluation takes ``shard_index`` and ``num_shards`` where the
+  JAX package takes ``shard_axis`` under ``shard_map``: the call returns
+  its shard's partial, zero outside the shard's leaves, and the caller adds
+  the partials (``parallel/sharded_tree.py``).
 """
 
 from __future__ import annotations
@@ -730,16 +733,33 @@ _HIER_PACK_BYTES = 1 << 30
 
 
 def near_batch_plan(tree: GridTree, k: int, leaf_batch: int = 512,
-                    num_segments: int = 1) -> Tuple[int, int]:
+                    num_segments: int = 1,
+                    num_shards: int = 1) -> Tuple[int, int]:
     """(leaf_batch, number of batches) after the JAX package's clamps: the
-    batch is at most the segment's leaves and keeps the
+    batch is at most the segment's leaves (of one shard's) and keeps the
     [B, (2k+1)^D·TWR, 4] near tensor near 1 GB."""
-    my_leaves = tree.num_leaf_cells // num_segments
+    my_leaves = tree.num_leaf_cells // num_shards // num_segments
     twr = (tree.capacity // 8 + 1) * 8
     mem_cap = max(1, 1 << int(math.floor(math.log2(
         max(1.0, _NEAR_BATCH_BYTES / ((2 * k + 1) ** tree.dim * twr * 16))))))
     lb = min(leaf_batch, mem_cap, my_leaves)
     return lb, my_leaves // lb
+
+
+def shard_leaves(num_leaves: int, shard_index: Optional[int],
+                 num_shards: int) -> Tuple[int, int]:
+    """(first leaf, leaves) of shard ``shard_index`` of ``num_shards``; the
+    whole range unsharded. The shards must split the leaves evenly."""
+    if num_shards == 1 and shard_index in (None, 0):
+        return 0, num_leaves
+    if shard_index is None or not 0 <= shard_index < num_shards:
+        raise ValueError(f"shard_index must be in [0, {num_shards}) when "
+                         f"num_shards > 1, got {shard_index!r}")
+    if num_leaves % num_shards:
+        raise ValueError(f"{num_shards} shards do not split the tree's "
+                         f"{num_leaves} leaves evenly")
+    my_leaves = num_leaves // num_shards
+    return int(shard_index) * my_leaves, my_leaves
 
 
 def grid_tree_accel_sorted(tree: GridTree, k: int = 1,
@@ -751,6 +771,8 @@ def grid_tree_accel_sorted(tree: GridTree, k: int = 1,
                            segment_index: int = 0,
                            far_impl: str = "point",
                            hier_coeffs=None,
+                           shard_index: Optional[int] = None,
+                           num_shards: int = 1,
                            _debug_skip: str = "") -> torch.Tensor:
     """Barnes-Hut accelerations [N, D] of the sorted bodies, not G-scaled.
 
@@ -762,15 +784,22 @@ def grid_tree_accel_sorted(tree: GridTree, k: int = 1,
     over the (2k+1)^D neighbourhood, one call for the segment's leaves
     (:func:`_near_field_accel`), added to each body's far field after the
     batches. ``num_segments`` > 1 evaluates only segment
-    ``segment_index``'s leaves. ``_debug_skip`` containing ``"far"`` /
-    ``"near"`` skips that part (phase timing).
+    ``segment_index``'s leaves. With ``num_shards`` > 1 the call is shard
+    ``shard_index``'s: it owns leaves [r·L/P, (r+1)·L/P) (contiguous in
+    Morton order, so a compact block of space), its segments nest inside
+    them, and rows outside them are zero. ``_debug_skip`` containing
+    ``"far"`` / ``"near"`` skips that part (phase timing).
     """
     dim, L, C = tree.dim, tree.leaf_level, tree.capacity
     dt, dev = tree.pos_sorted.dtype, tree.pos_sorted.device
     p2p_impl = _resolve_p2p_impl(p2p_impl, dev)
-    my_leaves = tree.num_leaf_cells // num_segments
-    chunk0 = int(segment_index) * my_leaves if num_segments > 1 else 0
-    leaf_batch, nb = near_batch_plan(tree, k, leaf_batch, num_segments)
+    chunk0, my_leaves = shard_leaves(tree.num_leaf_cells, shard_index,
+                                     num_shards)
+    if num_segments > 1:
+        my_leaves //= num_segments
+        chunk0 += int(segment_index) * my_leaves
+    leaf_batch, nb = near_batch_plan(tree, k, leaf_batch, num_segments,
+                                     num_shards)
     nch = 1 << dim
     twr = (C // 8 + 1) * 8
 

@@ -1,0 +1,263 @@
+"""Ring brute force over a device mesh: shard the targets, rotate the sources.
+
+Port of ``nbody_tpu.parallel.ring``. Each shard owns a block of target
+bodies and its force accumulator; source blocks travel around the ring with
+:meth:`Mesh.ppermute`, one hop a step, so after P steps every shard has
+summed the forces of every source block. Targets are disjoint, so no sum
+across shards is needed.
+
+**Newton-3 ring** (the default): each unordered shard pair once. The self
+block goes through the one-sided engine; ⌈(P−1)/2⌉ forward hops each run
+one two-output tile on shard b, giving its own rows and the Newton-3 share
+of the block b−s it holds; a return pass carries the shares home. For even
+P the step s = P/2 would count the pair (b, b−P/2) twice, so only shards
+b < P/2 evaluate it. Half the arithmetic of the one-sided ring for the same
+bytes moved.
+
+**Engines**, per shard: fp32 CUDA tensors run K2 (``local_accel_cuda``,
+the one-sided tile) and K3 (``sym_accel_cuda``, the two-output tile); any
+other tensors the plain rows of ``ops/brute_force.py`` in their own dtype
+(as the JAX package's jnp engines off the TPU, the pair guard always on).
+
+What differs from the JAX package, and why:
+
+* One process drives the shards (``parallel/mesh.py``): ``lax.scan`` over
+  the ring steps is a Python loop over steps and shards, and each shard's
+  launches run with its card current.
+* At the even-P half step the shards b ≥ P/2 launch nothing, where the JAX
+  program evaluates their tile and multiplies it by 0: their zero partials
+  add nothing, so the numbers are the same, with P/2 fewer K3 launches.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from ..config import DEFAULT_GRAVITY, GravityConfig
+from ..ops import cuda_brute as cb
+from ..ops.brute_force import _PAD_POS
+from .mesh import Mesh, make_mesh, pad_to_multiple, shard_bodies
+
+# local_accel(targets_pos [T,D], src_pos [S,D], src_mass [S], softening)
+#   -> un-G-scaled acceleration contributions [T, D]
+LocalAccelFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, float],
+                        torch.Tensor]
+
+# sym_accel(t_pos [T,D], t_mass [T], src_pos [S,D], src_mass [S], softening)
+#   -> (acc_t [T,D], part_s [S,D]): target rows and the sources' Newton-3
+#   share from one pair sweep (see brute_force._accel_rows_sym).
+SymAccelFn = Callable[
+    [torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, float],
+    Tuple[torch.Tensor, torch.Tensor]]
+
+
+def plain_local_accel(targets, src_pos, src_mass, softening):
+    """The plain one-sided engine: ``_accel_rows`` in row blocks, guarded."""
+    return cb.pairwise_accel_plain(targets, src_pos, src_mass, softening,
+                                   guard=True)
+
+
+def plain_sym_accel(tpos, tmass, spos, smass, softening):
+    """The plain two-output engine: ``_accel_rows_sym`` in row blocks,
+    guarded."""
+    return cb._sym_tile_rows(tpos, tmass, spos, smass, softening, guard=True)
+
+
+def _engines(positions: torch.Tensor, local_accel, sym_accel):
+    """The default engines for these bodies: K2/K3 for fp32 CUDA tensors,
+    the plain rows otherwise."""
+    kernel = positions.is_cuda and positions.dtype == torch.float32
+    if local_accel is None:
+        local_accel = cb.local_accel_cuda if kernel else plain_local_accel
+    if sym_accel is None:
+        sym_accel = cb.sym_accel_cuda if kernel else plain_sym_accel
+    return local_accel, sym_accel
+
+
+def _pad(positions, masses, n_pad):
+    n, d = positions.shape
+    if n_pad == n:
+        return positions, masses
+    return (torch.cat([positions, positions.new_full((n_pad - n, d),
+                                                     _PAD_POS)]),
+            torch.cat([masses, masses.new_zeros((n_pad - n,))]))
+
+
+def _forward_steps(p: int) -> int:
+    """⌈(P−1)/2⌉ forward hops, P/2 for even P (its last one halved)."""
+    return p // 2 if p % 2 == 0 else (p - 1) // 2
+
+
+def _keeps_half_step(s: int, p: int, shard: int) -> bool:
+    """Even P, step s = P/2: only shards b < P/2 evaluate the pair."""
+    return not (p % 2 == 0 and s == p // 2) or shard < p // 2
+
+
+def _ring_one_sided(mesh: Mesh, pos, mass, softening, local_accel):
+    """P steps: each shard's tile against the resident sources, then one
+    hop of the sources."""
+    acc = [torch.zeros_like(x) for x in pos]
+    src_pos, src_mass = list(pos), list(mass)
+    for _ in range(mesh.num_shards):
+        acc = mesh.per_shard(lambda r: acc[r] + local_accel(
+            pos[r], src_pos[r], src_mass[r], softening))
+        src_pos, src_mass = mesh.rotate(src_pos), mesh.rotate(src_mass)
+    return acc
+
+
+def _ring_symmetric(mesh: Mesh, pos, mass, softening, local_accel,
+                    sym_accel):
+    """Self blocks, ⌈(P−1)/2⌉ forward hops of two-output tiles, then the
+    return pass: partials added in descending s with one reverse hop after
+    each add, so p_s has travelled s hops when it ends."""
+    p = mesh.num_shards
+    acc = mesh.per_shard(lambda r: local_accel(pos[r], pos[r], mass[r],
+                                               softening))
+    src_pos, src_mass = list(pos), list(mass)
+    parts = []
+    for s in range(1, _forward_steps(p) + 1):
+        src_pos, src_mass = mesh.rotate(src_pos), mesh.rotate(src_mass)
+        tiles = mesh.per_shard(lambda r: sym_accel(
+            pos[r], mass[r], src_pos[r], src_mass[r], softening)
+            if _keeps_half_step(s, p, r) else None)
+        acc = [a if t is None else a + t[0] for a, t in zip(acc, tiles)]
+        parts.append([None if t is None else t[1] for t in tiles])
+    ret = [torch.zeros_like(x) for x in pos]
+    for part_s in reversed(parts):
+        ret = [x if q is None else x + q for x, q in zip(ret, part_s)]
+        ret = mesh.rotate(ret, -1)
+    return [a + b for a, b in zip(acc, ret)]
+
+
+def _finish(mesh: Mesh, acc, mass, config: GravityConfig, n: int,
+            device: torch.device) -> torch.Tensor:
+    """Scale each shard by G·m, gather in shard order on ``device``, cut
+    the padding."""
+    forces = [(config.G * m)[:, None] * a for a, m in zip(acc, mass)]
+    return torch.cat([f.to(device) for f in forces])[:n]
+
+
+def ring_brute_force(
+    positions: torch.Tensor,
+    masses: torch.Tensor,
+    config: GravityConfig = DEFAULT_GRAVITY,
+    mesh: Optional[Mesh] = None,
+    local_accel: Optional[LocalAccelFn] = None,
+    symmetric: Optional[bool] = None,
+    sym_accel: Optional[SymAccelFn] = None,
+) -> torch.Tensor:
+    """Per-body forces [N, D] computed over every shard of ``mesh`` (by
+    default every visible CUDA device), returned on the bodies' device.
+
+    ``local_accel`` / ``sym_accel`` are the per-shard engines (module
+    docstring for the defaults). ``symmetric`` (default: on, unless a
+    one-sided ``local_accel`` is given without a ``sym_accel``) runs the
+    Newton-3 ring, else the one-sided ring. N is padded to a multiple of P
+    with zero-mass bodies at 2e9.
+    """
+    mesh = make_mesh() if mesh is None else mesh
+    mesh.check(positions, masses)
+    if symmetric is None:
+        symmetric = local_accel is None or sym_accel is not None
+    local_accel, sym_accel = _engines(positions, local_accel, sym_accel)
+    n = positions.shape[0]
+    soft = float(config.softening)
+    pos_p, mass_p = _pad(positions, masses,
+                         pad_to_multiple(n, mesh.num_shards))
+    pos, mass = shard_bodies(mesh, pos_p, mass_p)
+    if symmetric:
+        acc = _ring_symmetric(mesh, pos, mass, soft, local_accel, sym_accel)
+    else:
+        acc = _ring_one_sided(mesh, pos, mass, soft, local_accel)
+    return _finish(mesh, acc, mass, config, n, positions.device)
+
+
+# ---------------------------------------------------------------------------
+# The ring in bounded pieces: row chunks inside each ring step
+# ---------------------------------------------------------------------------
+#
+# The JAX package drives this ring from the host, one dispatch per rotation,
+# tile chunk and return hop, so that no dispatch outruns the TPU's watchdog.
+# The card has no such watchdog; the port keeps the driver for its bounded
+# launches and its equality with ring_brute_force.
+
+
+def _seg_rows_for(shard_rows: int, dim: int, pair_budget: int) -> int:
+    """Target-row chunk so chunk·shard_rows pairs ≤ pair_budget (pow2)."""
+    rows = max(128, pair_budget // max(shard_rows, 1))
+    rows = 1 << (rows.bit_length() - 1)
+    return min(rows, shard_rows)
+
+
+def segment_plan(n: int, num_shards: int, dim: int,
+                 pair_budget: int) -> Tuple[int, int]:
+    """(rows a chunk, chunks a shard) of :func:`ring_all_pairs_segmented`.
+    The chunk rows divide the shard: N is padded up, never truncated (a
+    clamped dynamic_slice of a ragged tail chunk would re-read the previous
+    chunk's rows in the JAX program)."""
+    shard_rows = pad_to_multiple(n, num_shards * 128) // num_shards
+    seg_target = _seg_rows_for(shard_rows, dim, pair_budget)
+    nseg = -(-shard_rows // seg_target)
+    seg_rows = pad_to_multiple(-(-shard_rows // nseg), 128)
+    return seg_rows, nseg
+
+
+def ring_all_pairs_segmented(
+    positions: torch.Tensor,
+    masses: torch.Tensor,
+    config: GravityConfig = DEFAULT_GRAVITY,
+    mesh: Optional[Mesh] = None,
+    sym_accel: Optional[SymAccelFn] = None,
+    local_accel: Optional[LocalAccelFn] = None,
+    pair_budget: int = 1 << 40,
+) -> torch.Tensor:
+    """Exact Newton-3 ring forces [N, D] with every tile bounded to
+    ``pair_budget`` pairs.
+
+    The arithmetic of ``ring_brute_force(symmetric=True)``, driven step by
+    step: per ring step one rotation of the sources, then one tile per
+    chunk of ``seg_rows`` target rows (:func:`segment_plan`), the target
+    rows placed in order and the sources' shares summed over the chunks,
+    then the shares' s-hop return. The self blocks go through
+    ``local_accel`` chunk by chunk. The default budget (2^40) never splits
+    a shard of ≤ 1M rows.
+    """
+    mesh = make_mesh() if mesh is None else mesh
+    mesh.check(positions, masses)
+    local_accel, sym_accel = _engines(positions, local_accel, sym_accel)
+    p = mesh.num_shards
+    n, d = positions.shape
+    soft = float(config.softening)
+    seg_rows, nseg = segment_plan(n, p, d, pair_budget)
+    pos_p, mass_p = _pad(positions, masses, seg_rows * nseg * p)
+    pos, mass = shard_bodies(mesh, pos_p, mass_p)
+
+    def full_tile(r, src_pos, src_mass, self_pair):
+        """Shard r's rows chunk by chunk against the resident sources:
+        (target rows, the sources' share summed over the chunks)."""
+        accs, part = [], None
+        for c in range(nseg):
+            tp = pos[r][c * seg_rows:(c + 1) * seg_rows]
+            tm = mass[r][c * seg_rows:(c + 1) * seg_rows]
+            if self_pair:
+                accs.append(local_accel(tp, src_pos, src_mass, soft))
+                continue
+            a, q = sym_accel(tp, tm, src_pos, src_mass, soft)
+            accs.append(a)
+            part = q if part is None else part + q
+        return (accs[0] if nseg == 1 else torch.cat(accs)), part
+
+    acc = mesh.per_shard(lambda r: full_tile(r, pos[r], mass[r], True)[0])
+    src_pos, src_mass = list(pos), list(mass)
+    for s in range(1, _forward_steps(p) + 1):
+        src_pos, src_mass = mesh.rotate(src_pos), mesh.rotate(src_mass)
+        tiles = mesh.per_shard(
+            lambda r: full_tile(r, src_pos[r], src_mass[r], False)
+            if _keeps_half_step(s, p, r)
+            else (torch.zeros_like(pos[r]), torch.zeros_like(pos[r])))
+        # The share on shard b belongs to block b − s: s reverse hops home.
+        back = mesh.rotate([t[1] for t in tiles], -s)
+        acc = [a + t[0] + b for a, t, b in zip(acc, tiles, back)]
+    return _finish(mesh, acc, mass, config, n, positions.device)

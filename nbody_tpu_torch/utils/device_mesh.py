@@ -1,0 +1,141 @@
+"""The device mesh type: an ordered list of devices, one per shard.
+
+It lives below ``ops/`` so that the FMM's staged evaluation
+(``ops/fmm.fmm_shard_partials``) runs on it without the ops layer
+importing ``parallel/``; ``parallel/mesh.py`` re-exports it beside the
+constructors (``make_mesh``, ``shard_bodies``). The collectives keep their
+JAX names and act on lists of per-shard tensors, shard r's on
+``devices[r]``: :meth:`Mesh.ppermute`, :meth:`Mesh.psum` and
+:meth:`Mesh.reduce` (added in shard order 0 to P−1, so the result does not
+depend on timing) and :meth:`Mesh.all_gather`. Results that shards on one
+device share are one tensor object, so work replicated in the JAX program
+(:meth:`Mesh.per_device`) runs once per distinct device, not once per
+shard. A tensor whose device type is not the mesh's raises.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import torch
+
+
+def _move(x, device: torch.device):
+    """``x`` on ``device``: a tensor, or a dataclass, tuple or list of them
+    (a tree); other values as they are. Already there: the same object."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{
+            f.name: _move(getattr(x, f.name), device)
+            for f in dataclasses.fields(x)})
+    if isinstance(x, (tuple, list)):
+        return type(x)(_move(v, device) for v in x)
+    return x
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """An ordered 1-D mesh: shard r runs on ``devices[r]``."""
+
+    devices: Tuple[torch.device, ...]
+
+    def __post_init__(self):
+        if not self.devices:
+            raise ValueError("a mesh needs at least one device")
+        kinds = {d.type for d in self.devices}
+        if len(kinds) != 1 or not kinds <= {"cpu", "cuda"}:
+            raise ValueError(f"a mesh's devices must all be cpu or all cuda, "
+                             f"got {[str(d) for d in self.devices]}")
+
+    @property
+    def num_shards(self) -> int:
+        return len(self.devices)
+
+    @property
+    def device_type(self) -> str:
+        return self.devices[0].type
+
+    @property
+    def distinct_devices(self) -> List[torch.device]:
+        return list(dict.fromkeys(self.devices))
+
+    def check(self, *tensors) -> None:
+        """Raise unless every tensor's device type is the mesh's."""
+        for t in tensors:
+            if t.device.type != self.device_type:
+                raise ValueError(
+                    f"a tensor on {t.device} given to a mesh of "
+                    f"{self.device_type} devices; move it there first")
+
+    def device_context(self, shard_index: int):
+        """The context a shard's launches run in: its card current."""
+        d = self.devices[shard_index]
+        return torch.cuda.device(d) if d.type == "cuda" \
+            else contextlib.nullcontext()
+
+    def per_device(self, fn: Callable[[int], object]) -> list:
+        """``fn(r)`` at the first shard r of each distinct device, with its
+        card current, as a per-shard list: the shards of one device share
+        the result object."""
+        done, out = {}, []
+        for r, d in enumerate(self.devices):
+            if d not in done:
+                with self.device_context(r):
+                    done[d] = fn(r)
+            out.append(done[d])
+        return out
+
+    def per_shard(self, fn: Callable[[int], object]) -> list:
+        """``fn(r)`` for every shard r in order, with its card current."""
+        out = []
+        for r in range(self.num_shards):
+            with self.device_context(r):
+                out.append(fn(r))
+        return out
+
+    def replicate(self, x) -> list:
+        """``x`` (a tensor or a tree of them) on every shard: one copy per
+        distinct device, shared by that device's shards."""
+        return self.per_device(lambda r: _move(x, self.devices[r]))
+
+    def ppermute(self, xs: Sequence[torch.Tensor],
+                 perm: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
+        """Shard ``src``'s tensor goes to shard ``dst`` for each (src, dst)
+        of ``perm``; a shard that receives nothing gets zeros, as in JAX."""
+        self.check(*xs)
+        out: List[Optional[torch.Tensor]] = [None] * self.num_shards
+        for src, dst in perm:
+            out[dst] = xs[src].to(self.devices[dst])
+        return [torch.zeros_like(xs[r]) if o is None else o
+                for r, o in enumerate(out)]
+
+    def rotate(self, xs: Sequence[torch.Tensor],
+               hops: int = 1) -> List[torch.Tensor]:
+        """:meth:`ppermute` by ``hops`` around the ring (r → r + hops)."""
+        p = self.num_shards
+        return self.ppermute(xs, [(i, (i + hops) % p) for i in range(p)])
+
+    def reduce(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The sum of every shard's tensor, added in shard order 0 to P−1
+        on ``devices[0]`` and left there."""
+        self.check(*xs)
+        total = xs[0]
+        for x in xs[1:]:
+            total = total + x.to(total.device)
+        return total
+
+    def psum(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """:meth:`reduce`, then placed on every shard's device."""
+        return self.replicate(self.reduce(xs))
+
+    def all_gather(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """The shards' tensors concatenated in shard order along axis 0,
+        once on each distinct device, placed on every shard's device."""
+        self.check(*xs)
+        if len(xs) == 1:
+            return list(xs)
+        return self.per_device(lambda r: torch.cat(
+            [x.to(self.devices[r]) for x in xs]))

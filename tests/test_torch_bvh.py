@@ -336,3 +336,19 @@ def test_cli_tier_h_on_cpu(capsys):
     assert "methods=['BVH_Radix']" in out
     assert "BVH_Radix accuracy:" in out
 
+
+def test_sharded_walk_matches_jax(trees):
+    """Three shards of the walk (bvh_accel_sorted(shard_index, num_shards):
+    250 groups of 8 split 84 / 84 / 82) add up to the JAX package's walk
+    of the same tree (the call of the quad/point case above, so its
+    compiled program), and the shards' overflow flags concatenate to
+    JAX's; 1e-12 in f64."""
+    jt, tt = trees[2]
+    kw = dict(_WALK, multipole="quad", far_impl="point")
+    want = [np.asarray(x) for x in jb.bvh_accel_sorted(jt, **kw)]
+    parts = [tb.bvh_accel_sorted(tt, shard_index=r, num_shards=3, **kw)
+             for r in range(3)]
+    _close(sum(p[0] for p in parts).numpy(), want[0])
+    np.testing.assert_array_equal(
+        np.concatenate([p[3].numpy() for p in parts]), want[3])
+    assert max(int(p[1]) for p in parts) == int(want[1])

@@ -345,8 +345,12 @@ def test_fmm_bad_arguments_raise():
     with pytest.raises(ValueError, match="CUDA tensors"):
         TF.fmm_forces(pos, mass, p2p_impl="cuda")
     tree = tg.build_grid_tree(pos, mass, 2, tg.compute_capacity(pos, 2))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TF.fmm_accel_sorted(tree, shard_axis="x")
+    # Sharding: the sparse layout is single-device, and a sharded call
+    # names its shard.
+    with pytest.raises(ValueError, match="single-device"):
+        TF.fmm_accel_sorted(tree, shard_index=0, num_shards=2, num_chunks=8)
+    with pytest.raises(ValueError, match="shard_index"):
+        TF.fmm_accel_sorted(tree, num_shards=2)
     # The skips leave only the phases that run.
     near = TF.fmm_accel_sorted(tree, _debug_skip="m2l,l2p")
     assert torch.equal(near, tg.grid_tree_accel_sorted(
@@ -394,3 +398,21 @@ def test_cli_tier_f_on_cpu(capsys):
     out = capsys.readouterr().out
     assert rc == 0
     assert "FMM_Chebyshev accuracy:" in out
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_sharded_stages_match_jax_f64(dim):
+    """The staged sharded FMM (fmm_shard_partials on a CPU mesh of 4:
+    P2M and every level's M2L rows per shard, gathered, L2P and P2P per
+    shard) adds up to the JAX package's evaluation of the same tree (the
+    cached order-4 case), 1e-12; fmm_accel_sorted(shard_index=r) returns
+    the same partials."""
+    from nbody_tpu_torch.parallel.mesh import make_mesh
+    tree, (acc, _, _) = _case(dim, 4)
+    mesh = make_mesh([torch.device("cpu")] * 4)
+    parts = TF.fmm_shard_partials(mesh.replicate(tree), mesh, order=4,
+                                  softening=SOFT)
+    assert _err(sum(parts), acc) < 1e-12
+    one = TF.fmm_accel_sorted(tree, order=4, softening=SOFT, shard_index=2,
+                              num_shards=4)
+    assert torch.equal(one, parts[2])

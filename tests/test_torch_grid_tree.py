@@ -351,3 +351,27 @@ def test_barnes_hut_grid_is_build_evaluate_unsort_scale():
     assert torch.equal(tg.barnes_hut_grid(tp, tm, cfg), manual)
     assert torch.equal(tg.barnes_hut_grid(tp, tm, cfg, capacity=cap,
                                           layout="dense"), manual)
+
+
+@pytest.mark.parametrize("p", [2, 4])
+def test_sharded_partials_match_jax(p):
+    """Shard r's call (shard_index=r, num_shards=P: leaves [r·L/P,
+    (r+1)·L/P), zero rows elsewhere) on the hier case of _ACCEL_CASES, the
+    sweep made once and handed to every shard; the partials add up to the
+    JAX package's unsharded call with the same arguments (its compiled
+    program, cached by the case above), 1e-12."""
+    dim, level, k, far_impl, multipole, lb, _, _ = next(
+        c for c in _ACCEL_CASES if c[3] == "hier" and c[6] == 1)
+    jtree, _, tree = _trees(1500, dim, level, True)
+    kw = dict(k=k, softening=1e-6, leaf_batch=lb, multipole=multipole,
+              far_impl=far_impl)
+    want = np.asarray(jg.grid_tree_accel_sorted(
+        jtree, num_segments=1, segment_index=jnp.int32(0), **kw))
+    # One sweep for every shard, as parallel/sharded_tree.py hands it out.
+    sweep = hier_far_coeffs(tree, k, multipole=multipole, defer="gather")[0]
+    parts = [tg.grid_tree_accel_sorted(tree, shard_index=r, num_shards=p,
+                                       hier_coeffs=sweep, **kw)
+             for r in range(p)]
+    assert _acc_err(sum(parts), want) < 1e-12
+    owners = torch.stack([x.abs().sum(-1) > 0 for x in parts]).sum(0)
+    assert int(owners.max()) == 1

@@ -21,8 +21,21 @@ mods = ["nbody_tpu_torch"] + [
 for name in mods:
     __import__(name)
 for name in ("nbody_tpu_torch.ops.fmm", "nbody_tpu_torch.ops.sparse_grid",
-             "nbody_tpu_torch.ops.bvh"):
+             "nbody_tpu_torch.ops.bvh", "nbody_tpu_torch.parallel",
+             "nbody_tpu_torch.parallel.mesh", "nbody_tpu_torch.parallel.ring",
+             "nbody_tpu_torch.parallel.sharded_tree",
+             "nbody_tpu_torch.parallel.dryrun",
+             "nbody_tpu_torch.utils.device_mesh"):
     assert name in mods, name
+# Running the ring and a sharded tier on a CPU mesh, not only importing
+# them, loads no JAX either.
+import torch
+from nbody_tpu_torch.parallel import make_mesh, ring_brute_force
+from nbody_tpu_torch.parallel.sharded_tree import fmm_sharded
+mesh = make_mesh([torch.device("cpu")] * 2)
+pos = torch.rand((64, 3), dtype=torch.float64)
+ring_brute_force(pos, torch.ones(64, dtype=torch.float64), mesh=mesh)
+fmm_sharded(pos, torch.ones(64, dtype=torch.float64), mesh=mesh, order=3)
 jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not jax_mods, jax_mods
 ref_mods = sorted(m for m in sys.modules
