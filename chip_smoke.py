@@ -40,8 +40,17 @@ before it and read just after:
   self blocks, K3 on the forward tiles), odd and even P, the one-sided and
   the segmented ring, the sharded Barnes-Hut (1e6 2D) and FMM (1e5 3D)
   with K6 once a shard, the sharded BVH (1e6 2D), each against its
-  single-device run and the f64 oracle, and the dry run; a mesh of the
-  real cards too where there are several.
+  single-device run and the f64 oracle; the body-sharded LET tiers
+  (Barnes-Hut 1e6 2D, FMM 1e5 3D, BVH 1e6 2D; plain torch, no kernel
+  launch) against their single-device runs and the f64 oracle, timed
+  beside the single-device and the replicated-sharded tiers; and the dry
+  run; a mesh of the real cards too where there are several (there with
+  each card's peak memory under the LET and the replicated tiers);
+* the harness modules (``bench.sweep --quick``, ``bench.analysis``, the
+  FMM's phase breakdown, a ``torch.profiler`` trace of one Barnes-Hut
+  evaluation with its kernel launches and the device's busy share, the
+  native oracle built by ``make -C native``, every scenario of
+  ``models/``).
 
 It times every kernel against its plain version and gives each its bound
 (the least time the card could take for the same work). Every check raises on
@@ -59,6 +68,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -206,7 +216,7 @@ BVH_BIG = (5_000_000, 2)
 BVH_SEED = 1600
 BVH_TOL = 1e-3
 BVH_SEEDED_TOL = 1e-5
-BVH_F64_N = 20_000
+BVH_F64_N = 10_000
 BVH_F64_TOL = 1e-12
 BVH_TIMED = [(1_000_000, 2), (100_000, 3)]
 BVH_PARLAY_S = {(100_000, 2): 0.256, (100_000, 3): 1.659,
@@ -235,6 +245,24 @@ SHARDED_FMM = (100_000, 3)
 # can raise that to ~1e-12 of the RMS force.
 FMM_SHARDED_F64_TOL = 1e-10
 SHARDED_BVH = (1_000_000, 2, 0.25)
+# [17] The body-sharded LET tiers at the sizes their users run, uniform
+# fp32, on the same mesh: Barnes-Hut (n, dim, theta) with its default
+# local far field, the FMM (n, dim) at FMM_ORDER, the BVH (n, dim, theta).
+LET_BH = (1_000_000, 2, 0.25)
+LET_FMM = (100_000, 3)
+LET_BVH = (1_000_000, 2, 0.25)
+# [18] The harness modules on the card: the quick sweep (every registered
+# tier at 1e3 and 1e4, 2D and 3D, with accuracy), the FMM's phase
+# breakdown at HARNESS_FMM, one traced Barnes-Hut evaluation at TRACE_BH,
+# the native oracle against the f64 brute force at NATIVE_N 2D, and every
+# scenario of models/.
+HARNESS_SEED = 1900
+HARNESS_FMM = (100_000, 3)
+TRACE_BH = (1_000_000, 2, 0.25)
+NATIVE_N = 20_000
+# The native oracle and the port's f64 brute force sum the same f64 terms
+# in other orders: far below this scale-normalized bound.
+NATIVE_TOL = 1e-10
 # The rate probe P: iterations of its plain-version check at the tool's
 # block, the tool's run, and the f32 FMA launch of the kernels line, timed
 # and held beside its plain version.
@@ -979,6 +1007,33 @@ def fmm_far_allowance(fm, tree64, order) -> torch.Tensor:
             (fm._outer_basis([ds[e] if e == d else s[e] for e in range(dim)])
              * lw).sum(-1) / half[d] for d in range(dim)], dim=-1).norm(dim=-1))
     return FMM_FAR_ULPS * 2.0 ** -24 * torch.cat(out)
+
+
+def fmm_fp32_check(label, got, single, pos, mass, cfg, order) -> None:
+    """Hold an fp32 FMM run ``got`` to the single-device fp32 run
+    ``single`` per body: within twice each body's far allowance
+    (:func:`fmm_far_allowance`, on the f64 copy of the tree) plus twice
+    K6's fp32 floor of the f64 run."""
+    from nbody_tpu_torch.ops import fmm as fm, grid_tree as gt
+    n, dim = pos.shape
+    L = gt.auto_leaf_level(n, dim)
+    tree = gt.build_grid_tree(pos, mass, L, gt.compute_capacity(pos, L))
+    t64 = tree_f64(gt, tree)
+    gm = (cfg.G * mass.double())[:, None]
+    a_sh = (got.double() / gm)[tree.order]
+    a_un = (single.double() / gm)[tree.order]
+    a64 = fm.fmm_accel_sorted(t64, order=order, softening=cfg.softening)
+    rms = float(a64.norm(dim=-1).pow(2).mean().sqrt())
+    near_tol = max(1e-5, fp32_floor(a64, K6_ULPS))
+    far = fmm_far_allowance(fm, t64, order)
+    excess = float(((a_sh - a_un).norm(dim=-1) - 2 * far).max()) / rms
+    finite = bool(torch.isfinite(got).all())
+    print(f"    {label} fp32 vs fmm_forces fp32, per body: "
+          f"{float((a_sh - a_un).norm(dim=-1).max()) / rms:.3e} of the RMS; "
+          f"beyond twice each body's far allowance {excess:.3e} (tol twice "
+          f"the near floor {2 * near_tol:.3e}), finite {finite}")
+    if not (finite and excess <= 2 * near_tol):
+        raise AssertionError(f"{label} fp32: {excess} > {2 * near_tol}")
 
 
 def fmm_phase_times(fm, gt, cuda_p2p, pos, mass, cfg, order) -> dict:
@@ -1865,24 +1920,8 @@ def phase_multi(cb, dev, default, smi) -> dict:
     expect_launches(f"fmm_sharded N={n} {dim}D", counts(),
                     {"near_field": p, "p2p_leaf": 0})
     out["fmm_launches"] = p
-    L = gt.auto_leaf_level(n, dim)
-    tree = gt.build_grid_tree(pos, mass, L, gt.compute_capacity(pos, L))
-    t64 = tree_f64(gt, tree)
-    gm = (default.G * mass.double())[:, None]
-    a_sh = (got.double() / gm)[tree.order]
-    a_un = (single.double() / gm)[tree.order]
-    a64 = fm.fmm_accel_sorted(t64, order=order, softening=default.softening)
-    rms = float(a64.norm(dim=-1).pow(2).mean().sqrt())
-    near_tol = max(1e-5, fp32_floor(a64, K6_ULPS))
-    far = fmm_far_allowance(fm, t64, order)
-    excess = float(((a_sh - a_un).norm(dim=-1) - 2 * far).max()) / rms
-    print(f"    fmm_sharded N={n} {dim}D fp32 vs fmm_forces fp32, per body: "
-          f"{float((a_sh - a_un).norm(dim=-1).max()) / rms:.3e} of the RMS; "
-          f"beyond twice each body's far allowance {excess:.3e} (tol twice "
-          f"the near floor {2 * near_tol:.3e}), finite "
-          f"{bool(torch.isfinite(got).all())}")
-    if not (bool(torch.isfinite(got).all()) and excess <= 2 * near_tol):
-        raise AssertionError(f"fmm_sharded fp32: {excess} > {2 * near_tol}")
+    fmm_fp32_check(f"fmm_sharded N={n} {dim}D", got, single, pos, mass,
+                   default, order)
     rows = torch.randperm(n, generator=gen)[:BH_ROWS].to(dev)
     want = oracle64(cb, pos, mass, default, rows)
     reset_launches()
@@ -1899,7 +1938,7 @@ def phase_multi(cb, dev, default, smi) -> dict:
     timed(f"fmm_{n}_{dim}d_order{order}",
           lambda: st.fmm_sharded(pos, mass, default, mesh=mesh, order=order),
           lambda: fm.fmm_forces(pos, mass, default, order=order))
-    del b, pos, mass, single, got, got64, tree, t64, a64, a_sh, a_un, far
+    del b, pos, mass, single, got, got64
 
     # BVH, theta = 0.25 quad, groups of 1024 (plain torch: no launch).
     n, dim, theta = SHARDED_BVH
@@ -1923,6 +1962,8 @@ def phase_multi(cb, dev, default, smi) -> dict:
           lambda: bvh.bvh_forces(pos, mass, default, theta=theta), reps=1)
     del b, pos, mass, single, got, s64
 
+    out["let"] = let_checks(cb, mesh, gen, dev, default, smi)
+
     print(f"    dryrun_multichip on {p} virtual shards")
     out["dryrun"] = dryrun.dryrun_multichip(mesh, log=lambda m: print(
         "    " + m))
@@ -1930,16 +1971,338 @@ def phase_multi(cb, dev, default, smi) -> dict:
     if count > 1:
         real = make_mesh([torch.device("cuda", i)
                           for i in range(min(count, MULTI_REAL_MAX))])
-        print(f"    a mesh of {real.num_shards} real cards: the rings and "
-              "the dry run")
+        print(f"    a mesh of {real.num_shards} real cards: the rings, the "
+              "dry run and the LET tiers' peak memory a card")
         out["real"] = ring_checks(ring, cb, real, gen, dev, default, smi)
         out["real"]["dryrun"] = dryrun.dryrun_multichip(
             real, log=lambda m: print("    " + m))
+        out["real"]["peak_gib"] = let_memory(real, gen, dev, default)
     else:
         print(f"    {count} CUDA device: no mesh of real cards to run; the "
               f"virtual mesh above is what [17] asserts")
     out["seconds"] = time.perf_counter() - t_phase
     print(f"    [17] took {out['seconds']:.1f} s")
+    return out
+
+
+def let_checks(cb, mesh, gen, dev, default, smi) -> dict:
+    """[17] The LET tiers on ``mesh``: no kernel on their path (their near
+    field is plain torch, as the JAX package's is jnp), finite (an overflow
+    would poison with NaN), held to the single-device tier (Barnes-Hut with
+    the same far field, the FMM) and to the f64 oracle, and timed beside
+    the single-device and the replicated-sharded tier, with the host reads
+    of the exchange (and of the BVH walk) counted."""
+    from nbody_tpu_torch.config import FMM_ORDER
+    from nbody_tpu_torch.ops import bvh, fmm as fm, grid_tree as gt
+    from nbody_tpu_torch.parallel import let_tree as lt
+    from nbody_tpu_torch.parallel import sharded_tree as st
+    from nbody_tpu_torch.parallel.let_bvh import let_bvh
+    from nbody_tpu_torch.state import random_system
+    out = {}
+
+    def run(label, fn):
+        reset_launches()
+        r0, w0 = lt.HOST_READS["count"], bvh.HOST_READS["count"]
+        got = fn()
+        torch.cuda.synchronize()
+        expect_launches(label, counts(), {k: 0 for k in counts()})
+        reads = {"exchange": lt.HOST_READS["count"] - r0,
+                 "bvh_walk": bvh.HOST_READS["count"] - w0}
+        print(f"    {label}: host reads {reads}")
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{label}: not finite (an overflow "
+                                 "poisons every row)")
+        return got, reads
+
+    def timed(name, let, single, sharded, reads, reps=3):
+        row = {"let_ms": time_ms(let, reps=reps),
+               "single_ms": time_ms(single, reps=reps),
+               "sharded_ms": time_ms(sharded, reps=reps),
+               "host_reads": reads}
+        out[name] = row
+        print(f"    {name}: LET {row['let_ms']:.3f} ms, single-device "
+              f"{row['single_ms']:.3f} ms, replicated-sharded "
+              f"{row['sharded_ms']:.3f} ms, {smi}")
+
+    # Barnes-Hut, theta = 0.25 (k = 3), the LET default far field ("local"):
+    # held to barnes_hut_grid with the same far field.
+    n, dim, theta = LET_BH
+    b = random_system(n, dim, generator=gen, device=dev)
+    pos, mass = b.positions, b.masses
+    one = dict(theta=theta, far_impl="local", layout="dense")
+    s64 = gt.barnes_hut_grid(pos, mass, default, **one).double()
+    got, reads = run(f"let_barnes_hut N={n} {dim}D theta={theta}",
+                     lambda: lt.let_barnes_hut(pos, mass, default, mesh=mesh,
+                                               theta=theta))
+    check_close(f"let_barnes_hut N={n} {dim}D vs barnes_hut_grid("
+                "far_impl='local') (both fp32)", got, s64,
+                tol=max(1e-5, 2 * fp32_floor(s64, K6_ULPS)))
+    rows = torch.randperm(n, generator=gen)[:BH_ROWS].to(dev)
+    check_close(f"let_barnes_hut N={n} {dim}D, {BH_ROWS} rows vs f64 oracle",
+                got[rows], oracle64(cb, pos, mass, default, rows), tol=1e-3)
+    timed(f"let_barnes_hut_{n}_{dim}d_theta{theta}",
+          lambda: lt.let_barnes_hut(pos, mass, default, mesh=mesh,
+                                    theta=theta),
+          lambda: gt.barnes_hut_grid(pos, mass, default, **one),
+          lambda: st.barnes_hut_sharded(pos, mass, default, mesh=mesh,
+                                        theta=theta), reads, reps=1)
+    del b, pos, mass, s64, got
+
+    # FMM, order 8: fp32 per body against fmm_forces; f64 against the f64
+    # oracle and the f64 fmm_forces.
+    n, dim = LET_FMM
+    order = FMM_ORDER
+    b = random_system(n, dim, generator=gen, device=dev)
+    pos, mass = b.positions, b.masses
+    single = fm.fmm_forces(pos, mass, default, order=order)
+    got, reads = run(f"let_fmm N={n} {dim}D order={order}",
+                     lambda: lt.let_fmm(pos, mass, default, mesh=mesh,
+                                        order=order))
+    fmm_fp32_check(f"let_fmm N={n} {dim}D", got, single, pos, mass, default,
+                   order)
+    rows = torch.randperm(n, generator=gen)[:BH_ROWS].to(dev)
+    got64, _ = run(f"let_fmm N={n} {dim}D f64",
+                   lambda: lt.let_fmm(pos.double(), mass.double(), default,
+                                      mesh=mesh, order=order))
+    check_close(f"let_fmm N={n} {dim}D f64, {BH_ROWS} rows vs f64 oracle",
+                got64[rows], oracle64(cb, pos, mass, default, rows),
+                tol=FMM_GATE)
+    check_close(f"let_fmm N={n} {dim}D f64 vs fmm_forces f64", got64,
+                fm.fmm_forces(pos.double(), mass.double(), default,
+                              order=order), tol=FMM_SHARDED_F64_TOL)
+    timed(f"let_fmm_{n}_{dim}d_order{order}",
+          lambda: lt.let_fmm(pos, mass, default, mesh=mesh, order=order),
+          lambda: fm.fmm_forces(pos, mass, default, order=order),
+          lambda: st.fmm_sharded(pos, mass, default, mesh=mesh, order=order),
+          reads)
+    del b, pos, mass, single, got, got64
+
+    # BVH, theta = 0.25 quad: per-shard trees, so held to the oracle only.
+    n, dim, theta = LET_BVH
+    b = random_system(n, dim, generator=gen, device=dev)
+    pos, mass = b.positions, b.masses
+    got, reads = run(f"let_bvh N={n} {dim}D theta={theta}",
+                     lambda: let_bvh(pos, mass, default, mesh=mesh,
+                                     theta=theta))
+    rows = torch.randperm(n, generator=gen)[:BH_ROWS].to(dev)
+    check_close(f"let_bvh N={n} {dim}D, {BH_ROWS} rows vs f64 oracle",
+                got[rows], oracle64(cb, pos, mass, default, rows),
+                tol=BVH_TOL)
+    timed(f"let_bvh_{n}_{dim}d_theta{theta}",
+          lambda: let_bvh(pos, mass, default, mesh=mesh, theta=theta),
+          lambda: bvh.bvh_forces(pos, mass, default, theta=theta),
+          lambda: st.bvh_sharded(pos, mass, default, mesh=mesh, theta=theta),
+          reads, reps=1)
+    return out
+
+
+def let_memory(real, gen, dev, default) -> dict:
+    """Each card's peak allocated GiB during one LET run and one
+    replicated-sharded run of each [17] shape, on a mesh of real cards
+    (the bodies start on ``dev``)."""
+    from nbody_tpu_torch.config import FMM_ORDER
+    from nbody_tpu_torch.parallel import let_tree as lt
+    from nbody_tpu_torch.parallel import sharded_tree as st
+    from nbody_tpu_torch.parallel.let_bvh import let_bvh
+    from nbody_tpu_torch.state import random_system
+    runs = {
+        "barnes_hut": (LET_BH[:2], lambda p, m: lt.let_barnes_hut(
+            p, m, default, mesh=real, theta=LET_BH[2]),
+            lambda p, m: st.barnes_hut_sharded(p, m, default, mesh=real,
+                                               theta=LET_BH[2])),
+        "fmm": (LET_FMM, lambda p, m: lt.let_fmm(p, m, default, mesh=real,
+                                                 order=FMM_ORDER),
+                lambda p, m: st.fmm_sharded(p, m, default, mesh=real,
+                                            order=FMM_ORDER)),
+        "bvh": (LET_BVH[:2], lambda p, m: let_bvh(p, m, default, mesh=real,
+                                                  theta=LET_BVH[2]),
+                lambda p, m: st.bvh_sharded(p, m, default, mesh=real,
+                                            theta=LET_BVH[2])),
+    }
+    out = {}
+    for name, ((n, dim), let, sharded) in runs.items():
+        b = random_system(n, dim, generator=gen, device=dev)
+        row = {}
+        for kind, fn in (("let", let), ("sharded", sharded)):
+            for d in real.distinct_devices:
+                torch.cuda.synchronize(d)
+                torch.cuda.reset_peak_memory_stats(d)
+            fn(b.positions, b.masses)
+            row[kind] = [torch.cuda.max_memory_allocated(d) / 2 ** 30
+                         for d in real.distinct_devices]
+        out[name] = row
+        print(f"    {name} N={n} {dim}D peak GiB a card: LET "
+              f"{[round(x, 3) for x in row['let']]}, replicated-sharded "
+              f"{[round(x, 3) for x in row['sharded']]}")
+        del b
+    return out
+
+
+def trace_summary(path) -> dict:
+    """From a Chrome trace of ``torch.profiler``: the CUDA kernels
+    launched, their summed device time and the traced span (first event
+    start to last event end), in ms."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    t0 = min(e["ts"] for e in events)
+    t1 = max(e["ts"] + e["dur"] for e in events)
+    return {"kernels": len(kernels),
+            "kernel_ms": sum(e["dur"] for e in kernels) / 1e3,
+            "span_ms": (t1 - t0) / 1e3}
+
+
+def phase_harness(cb, dev, default, smi) -> dict:
+    """[18] The harness modules on the card: the quick sweep (no method-run
+    may fail), its analysis, the FMM's phase breakdown, one traced
+    Barnes-Hut evaluation (kernel launches and the device's busy share),
+    the native oracle against the f64 brute force, every scenario."""
+    import csv
+    import glob
+    import os
+    from nbody_tpu_torch import models
+    from nbody_tpu_torch.bench import analysis, sweep
+    from nbody_tpu_torch.bench.registry import methods_for_tiers
+    from nbody_tpu_torch.integrators import simulate
+    from nbody_tpu_torch.ops import grid_tree as gt
+    from nbody_tpu_torch.ops.brute_force import (brute_force_blocked,
+                                                 brute_force_direct)
+    from nbody_tpu_torch.state import random_system
+    from nbody_tpu_torch.utils import native, profiling
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(HARNESS_SEED)
+    out = {"card": smi}
+    print(f"[18] harness modules on the card, {smi}")
+
+    # The quick sweep: 2 sizes x 2 dims x accuracy off / on, every tier.
+    expected = 8 * len(methods_for_tiers("abhf", dev))
+    with tempfile.TemporaryDirectory() as tmp:
+        log, err = io.StringIO(), io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log), contextlib.redirect_stderr(err):
+            rc = sweep.main(["--quick", "--device", "cuda", "--results-dir",
+                             tmp])
+        out["sweep_s"] = time.perf_counter() - t0
+        out["sweep_launches"] = {k: v for k, v in counts().items() if v}
+        rows = []
+        for path in sorted(glob.glob(os.path.join(tmp, "run_*.csv"))):
+            with open(path) as f:
+                rows.extend(csv.DictReader(f))
+        failed = [r["Method"] for r in rows if float(r["Time(s)"]) < 0]
+        print("    " + log.getvalue().strip().splitlines()[-1]
+              + f" ({out['sweep_s']:.1f} s; launches "
+              f"{out['sweep_launches']})")
+        if rc or failed or len(rows) != expected or "failed:" in \
+                err.getvalue():
+            print(err.getvalue())
+            raise AssertionError(f"quick sweep: rc {rc}, {len(rows)} rows "
+                                 f"of {expected}, failed {failed}")
+        out["sweep_method_runs"] = len(rows)
+        alog = io.StringIO()
+        with contextlib.redirect_stdout(alog):
+            rc = analysis.main([tmp])
+        agg = analysis.aggregate(analysis.load_results(tmp))
+        runs = sum(v["Runs"] for v in agg.values())
+        print("    analysis: " + alog.getvalue().strip().splitlines()[0])
+        if rc or runs != len(rows):
+            raise AssertionError(f"analysis: rc {rc}, {runs} of {len(rows)}")
+        out["speedups"] = {f"{r['Method']}_{r['Bodies']}_{r['Dimension']}d":
+                           r["Speedup"] for r in analysis.speedup_table(agg)}
+
+    # The FMM's phase breakdown (a warm-up run first).
+    n, dim = HARNESS_FMM
+    b = random_system(n, dim, generator=gen, device=dev)
+    profiling.phase_breakdown_fmm(b.positions, b.masses, default, order=8)
+    timer = profiling.phase_breakdown_fmm(b.positions, b.masses, default,
+                                          order=8)
+    print(f"    phase_breakdown_fmm N={n} {dim}D order 8:")
+    for line in timer.report().splitlines():
+        print("      " + line)
+    out["fmm_phases_ms"] = {k: v * 1e3 for k, v in timer.times.items()}
+
+    # One traced Barnes-Hut evaluation: launches and busy share.
+    n, dim, theta = TRACE_BH
+    b = random_system(n, dim, generator=gen, device=dev)
+    gt.barnes_hut_grid(b.positions, b.masses, default, theta=theta)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tdir:
+        with profiling.trace(tdir):
+            gt.barnes_hut_grid(b.positions, b.masses, default, theta=theta)
+            torch.cuda.synchronize()
+        tr = trace_summary(os.path.join(tdir, "trace.json"))
+    if tr["kernels"] == 0:
+        raise AssertionError("the trace recorded no CUDA kernel")
+    tr["busy_share"] = tr["kernel_ms"] / tr["span_ms"]
+    out["trace_bh"] = tr
+    print(f"    traced barnes_hut_grid N={n} {dim}D theta={theta}: "
+          f"{tr['kernels']} kernel launches, {tr['kernel_ms']:.3f} ms of "
+          f"kernels in a {tr['span_ms']:.3f} ms span: device busy "
+          f"{100 * tr['busy_share']:.1f}%, {smi}")
+
+    # The native oracle (built here) against the f64 brute force.
+    # The Makefile's flags first; where the compiler has no OpenMP runtime
+    # (no libgomp), the same flags without -fopenmp: the oracle's loops
+    # then run serially, with the same results.
+    make = ["make", "-C", "native"]
+    made = subprocess.run(make, capture_output=True, text=True)
+    out["native_build"] = "openmp"
+    if made.returncode and "gomp" in made.stdout + made.stderr:
+        out["native_build"] = "serial (no OpenMP runtime)"
+        made = subprocess.run(make + ["CXXFLAGS=-std=c++17 -O3 -fPIC -Wall "
+                                      "-Wextra"], capture_output=True,
+                              text=True)
+    if made.returncode:
+        raise AssertionError(f"make -C native: rc {made.returncode}\n"
+                             f"{made.stdout}{made.stderr}")
+    print(f"    make -C native: built, {out['native_build']}")
+    if not native.available():
+        raise AssertionError("native oracle not loadable after make")
+    b = random_system(NATIVE_N, 2, generator=gen, device=dev,
+                      dtype=torch.float64)
+    want = brute_force_blocked(b.positions, b.masses, default)
+    t0 = time.perf_counter()
+    got = native.brute_force_native(b.positions.cpu().numpy(),
+                                    b.masses.cpu().numpy(), default.G,
+                                    default.softening)
+    out["native_s"] = time.perf_counter() - t0
+    check_close(f"native oracle N={NATIVE_N} 2D vs the port's f64 brute "
+                f"force on the card ({out['native_s']:.2f} s host)",
+                torch.from_numpy(got).to(dev), want, tol=NATIVE_TOL)
+
+    # Every scenario on the card; the binary closes after one period.
+    g = torch.Generator().manual_seed(HARNESS_SEED + 1)
+    built = {
+        "uniform_random": models.uniform_random(4096, generator=g,
+                                                device=dev),
+        "plummer_sphere": models.plummer_sphere(4096, generator=g,
+                                                device=dev),
+        "spiral_galaxy": models.spiral_galaxy(4096, generator=g, device=dev),
+        "two_body_circular_orbit": models.two_body_circular_orbit(dev),
+        "solar_system": models.solar_system(dev),
+    }
+    for name, (sys_, cfg) in built.items():
+        ok = all(t.device == dev and bool(torch.isfinite(t).all())
+                 for t in (sys_.positions, sys_.velocities, sys_.masses))
+        print(f"    {name}: N={sys_.n} {sys_.dim}D {sys_.dtype} on "
+              f"{sys_.positions.device}, G={cfg.G:g}, finite {ok}")
+        if not ok:
+            raise AssertionError(f"scenario {name}")
+    s0, cfg = built["two_body_circular_orbit"]
+    steps = 2000
+    final, _ = simulate(s0, lambda p, m: brute_force_direct(p, m, cfg),
+                        dt=4.0 * math.pi / steps, num_steps=steps)
+    drift = float((final.positions - s0.positions).abs().max())
+    sep = float(torch.linalg.norm(final.positions[0] - final.positions[1]))
+    print(f"    two-body orbit, one period, {steps} leapfrog steps f64 on "
+          f"the card: max drift {drift:.3e} (tol 5e-3), separation "
+          f"{sep:.6f} (2 within 1e-3)")
+    if not (drift < 5e-3 and abs(sep - 2.0) < 2e-3):
+        raise AssertionError(f"two-body orbit: drift {drift}, sep {sep}")
+    out["orbit_drift"] = drift
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"    [18] took {out['seconds']:.1f} s")
     return out
 
 
@@ -2113,7 +2476,8 @@ def multi_line(multi, smi) -> dict:
             "one_sided_ring_ms_n262144_3d": ring["one_sided_ms_3d"],
             "segmented_ring_ms_n262144_2d": ring["segmented_ms"],
             "unsegmented_ring_ms_n262144_2d": ring["unsegmented_ms"],
-            "tiers": multi["times"]}
+            "tiers": multi["times"], "let": multi["let"],
+            "peak_gib_real_cards": multi.get("real", {}).get("peak_gib")}
 
 
 def main() -> int:
@@ -2293,11 +2657,13 @@ def main() -> int:
     sparse = phase_sparse(cb, seeded(15), dev, default, smi)
     phase_bvh(cb, dev, default, smi, sparse)
     multi = phase_multi(cb, dev, default, smi)
+    harness = phase_harness(cb, dev, default, smi)
 
     kernels = kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh,
                            fmm, pr, ptxas, multi)
-    print(f"chip_smoke: phases [1]-[17] in {time.perf_counter() - t_run:.1f} s")
+    print(f"chip_smoke: phases [1]-[18] in {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"multi_device": multi_line(multi, smi)}))
+    print(json.dumps({"harness": harness}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

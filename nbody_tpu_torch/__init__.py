@@ -12,9 +12,12 @@ clustered inputs go to the sparse grid (``ops/sparse_grid.py``) under
 ``layout="auto"``. The Hilbert radix BVH tier (``ops/bvh.py``) builds its
 tree and walks it in plain torch. ``tools/microbench.py`` probes the card's
 rates. The multi-device tiers (``parallel/``: the ring brute force on K2
-and K3, the sharded Barnes-Hut, FMM and BVH) run on a device mesh driven
-from one process, whose shards may be virtual shards of one card. The JAX
-package ``nbody_tpu`` is the reference each part is held against.
+and K3, the sharded Barnes-Hut, FMM and BVH, and the body-sharded LET
+tiers) run on a device mesh driven from one process, whose shards may be
+virtual shards of one card. The benchmark sweep and its analysis
+(``bench/``), the scenario presets (``models/``), profiling and the native
+oracle's binding (``utils/``) complete the harness. The JAX package
+``nbody_tpu`` is the reference each part is held against.
 """
 
 from .config import (

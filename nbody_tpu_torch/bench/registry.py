@@ -73,6 +73,10 @@ def get(name: str) -> Method:
     return _REGISTRY[name]
 
 
+def all_methods() -> Dict[str, Method]:
+    return dict(_REGISTRY)
+
+
 def methods_for_tiers(tiers: str, device):
     """Registered methods whose tier letter is in ``tiers``, for a run on
     ``device``."""

@@ -51,12 +51,13 @@ def _check(tpos, src4):
                          f"{tpos.shape[0]}, got {tuple(src4.shape)}")
 
 
-def p2p_plain(tpos, src4, softening):
+def p2p_plain(tpos, src4, softening, tile_elems: int = _PLAIN_TILE_ELEMS):
     """Plain version of K6 on the packed layout: tpos [B, C, D], src4
-    [B, S, 4] → [B, C, D] in the inputs' dtype, in row blocks."""
+    [B, S, 4] → [B, C, D] in the inputs' dtype, in row blocks of at most
+    ``tile_elems`` pairs (one row at least)."""
     dim = tpos.shape[-1]
     b, c, _ = tpos.shape
-    rows = max(1, _PLAIN_TILE_ELEMS // max(c * src4.shape[1], 1))
+    rows = max(1, tile_elems // max(c * src4.shape[1], 1))
     if b <= rows:
         return _point_mass_accel(tpos, src4[..., :dim], src4[..., 3],
                                  softening)

@@ -1,4 +1,4 @@
-"""One step and one evaluation of every ported multi-device tier on a mesh.
+"""One step and one evaluation of every multi-device tier on a mesh.
 
 Counterpart of ``dryrun_multichip`` in the JAX package's
 ``__graft_entry__.py``: a leapfrog step of the ring brute force at N = 16·P
@@ -11,8 +11,6 @@ and the far field went untested.
     python -m nbody_tpu_torch.parallel.dryrun            # every CUDA device
     python -m nbody_tpu_torch.parallel.dryrun --virtual 4  # 4 shards, cuda:0
     python -m nbody_tpu_torch.parallel.dryrun --cpu 4      # a CPU mesh
-
-The body-sharded LET tiers are not ported yet.
 """
 
 from __future__ import annotations
@@ -28,6 +26,8 @@ from ..integrators import leapfrog_step
 from ..ops.brute_force import brute_force_direct
 from ..state import random_system
 from ..utils.accuracy import scale_normalized_error
+from .let_bvh import let_bvh
+from .let_tree import let_barnes_hut, let_fmm
 from .mesh import Mesh, make_mesh
 from .ring import ring_brute_force
 from .sharded_tree import barnes_hut_sharded, bvh_sharded, fmm_sharded
@@ -35,7 +35,7 @@ from .sharded_tree import barnes_hut_sharded, bvh_sharded, fmm_sharded
 DRYRUN_N = 2048
 
 # (name, forces(pos, mass, cfg, mesh), gate, nonzero error expected): the
-# JAX package's knobs and gates (__graft_entry__.py:162-186). The ring is
+# JAX package's knobs and gates (__graft_entry__.py:166-188). The ring is
 # exact up to fp32 rounding, so its error may be 0.
 TIERS = [
     ("ring brute force (exact)",
@@ -49,6 +49,15 @@ TIERS = [
     ("sharded BVH",
      lambda p, m, c, mesh: bvh_sharded(p, m, c, mesh=mesh, theta=0.5,
                                        group_size=8), 3e-3, True),
+    ("LET BH (body-sharded)",
+     lambda p, m, c, mesh: let_barnes_hut(p, m, c, mesh=mesh, theta=0.5,
+                                          leaf_level=3), 1.3e-2, True),
+    ("LET FMM (body-sharded)",
+     lambda p, m, c, mesh: let_fmm(p, m, c, mesh=mesh, order=6,
+                                   leaf_level=3), 5e-4, True),
+    ("LET BVH (body-sharded)",
+     lambda p, m, c, mesh: let_bvh(p, m, c, mesh=mesh, theta=0.5), 1e-3,
+     True),
 ]
 
 

@@ -9,10 +9,11 @@ JAX tests repeat CPU devices), ``cuda:0..3`` four cards (copies between them
 go peer to peer), ``[torch.device("cpu")] * P`` the CPU mesh of the tests.
 
 The :class:`Mesh` type and its collectives (``ppermute``, ``psum`` and
-``reduce`` in shard order 0 to P−1, ``all_gather``, ``per_device`` for work
-the JAX program replicates) are defined in ``utils/device_mesh.py``, below
-``ops/``, and re-exported here. ``axis_index`` becomes an explicit
-``shard_index`` argument of the sharded functions.
+``reduce`` in shard order 0 to P−1, ``pmin``, ``pmax``, ``all_gather``,
+``all_to_all``, ``per_device`` for work the JAX program replicates) are
+defined in ``utils/device_mesh.py``, below ``ops/``, and re-exported here.
+``axis_index`` becomes an explicit ``shard_index`` argument of the sharded
+functions.
 
 Nothing here catches a failure or moves work to another kind of device: a
 tensor whose device type is not the mesh's raises.

@@ -7,7 +7,8 @@ constructors (``make_mesh``, ``shard_bodies``). The collectives keep their
 JAX names and act on lists of per-shard tensors, shard r's on
 ``devices[r]``: :meth:`Mesh.ppermute`, :meth:`Mesh.psum` and
 :meth:`Mesh.reduce` (added in shard order 0 to P−1, so the result does not
-depend on timing) and :meth:`Mesh.all_gather`. Results that shards on one
+depend on timing), :meth:`Mesh.pmin` / :meth:`Mesh.pmax`,
+:meth:`Mesh.all_gather` and :meth:`Mesh.all_to_all`. Results that shards on one
 device share are one tensor object, so work replicated in the JAX program
 (:meth:`Mesh.per_device`) runs once per distinct device, not once per
 shard. A tensor whose device type is not the mesh's raises.
@@ -118,18 +119,33 @@ class Mesh:
         p = self.num_shards
         return self.ppermute(xs, [(i, (i + hops) % p) for i in range(p)])
 
-    def reduce(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
-        """The sum of every shard's tensor, added in shard order 0 to P−1
-        on ``devices[0]`` and left there."""
+    def _fold(self, op, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+        """``op`` over every shard's tensor in shard order 0 to P−1, on
+        ``devices[0]``."""
         self.check(*xs)
         total = xs[0]
         for x in xs[1:]:
-            total = total + x.to(total.device)
+            total = op(total, x.to(total.device))
         return total
+
+    def reduce(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The sum of every shard's tensor, added in shard order 0 to P−1
+        on ``devices[0]`` and left there."""
+        return self._fold(torch.add, xs)
 
     def psum(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """:meth:`reduce`, then placed on every shard's device."""
         return self.replicate(self.reduce(xs))
+
+    def pmin(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """The elementwise minimum of every shard's tensor, placed on every
+        shard's device."""
+        return self.replicate(self._fold(torch.minimum, xs))
+
+    def pmax(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """The elementwise maximum of every shard's tensor, placed on every
+        shard's device."""
+        return self.replicate(self._fold(torch.maximum, xs))
 
     def all_gather(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """The shards' tensors concatenated in shard order along axis 0,
@@ -139,3 +155,16 @@ class Mesh:
             return list(xs)
         return self.per_device(lambda r: torch.cat(
             [x.to(self.devices[r]) for x in xs]))
+
+    def all_to_all(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Each ``xs[q]`` is [P, ...]: shard r receives the [P, ...] stack of
+        ``xs[q][r]`` for q = 0 .. P−1, on ``devices[r]``
+        (``jax.lax.all_to_all`` with split and concat axis 0)."""
+        self.check(*xs)
+        p = self.num_shards
+        for x in xs:
+            if x.shape[0] != p:
+                raise ValueError(f"all_to_all needs a leading axis of {p} "
+                                 f"(the shards), got {tuple(x.shape)}")
+        return [torch.stack([x[r].to(d) for x in xs])
+                for r, d in enumerate(self.devices)]

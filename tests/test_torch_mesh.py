@@ -1,5 +1,7 @@
 """The port's device mesh (nbody_tpu_torch.parallel.mesh): its collectives
-on lists of per-shard tensors, the body split and the device checks.
+on lists of per-shard tensors, the body split and the device checks;
+all_to_all, pmin and pmax also against ``jax.lax``'s under ``shard_map``
+on 4 of the virtual CPU devices of tests/conftest.py.
 
 Tolerance: exact. The collectives only move and add tensors, on small int
 and float tensors whose sums are exact, except where a test fixes the
@@ -9,9 +11,11 @@ order of a float sum on purpose.
 import ast
 import pathlib
 
+import jax
 import numpy as np
 import pytest
 import torch
+from jax.sharding import PartitionSpec as JP
 
 from nbody_tpu_torch.parallel import mesh as pm
 
@@ -167,3 +171,40 @@ def test_a_cuda_mesh_refuses_cpu_tensors():
         pm.shard_bodies(m, torch.zeros(4))
     with pytest.raises(ValueError):
         m.psum([torch.zeros(2), torch.zeros(2)])
+
+
+def _jax_collective(fn, x):
+    """``fn`` under ``shard_map`` over 4 CPU devices on the [4, ...] numpy
+    array ``x`` (shard r holds x[r]); returns [4, ...]."""
+    jm = jax.sharding.Mesh(np.array(jax.devices()[:4]), ("x",))
+    out = jax.shard_map(lambda a: fn(a[0])[None], mesh=jm, in_specs=JP("x"),
+                        out_specs=JP("x"))(x)
+    return np.asarray(out)
+
+
+def test_all_to_all_matches_jax():
+    """Shard r receives the stack of every shard's row r
+    (``jax.lax.all_to_all(split_axis=0, concat_axis=0)``)."""
+    p = 4
+    x = np.arange(p * p * 3 * 2, dtype=np.int64).reshape(p, p, 3, 2)
+    want = _jax_collective(lambda a: jax.lax.all_to_all(a, "x", 0, 0), x)
+    got = _mesh(p).all_to_all([torch.from_numpy(x[r]) for r in range(p)])
+    assert [tuple(g.shape) for g in got] == [(p, 3, 2)] * p
+    np.testing.assert_array_equal(np.stack([g.numpy() for g in got]), want)
+
+
+@pytest.mark.parametrize("op", ["pmin", "pmax"])
+def test_pmin_pmax_match_jax(op):
+    """Elementwise over the shards, the same tensor on every shard."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((4, 5, 3))
+    want = _jax_collective(lambda a: getattr(jax.lax, op)(a, "x"), x)
+    m = _mesh(4)
+    got = getattr(m, op)([torch.from_numpy(x[r]) for r in range(4)])
+    np.testing.assert_array_equal(np.stack([g.numpy() for g in got]), want)
+    assert all(g is got[0] for g in got)  # one object per device
+
+
+def test_all_to_all_refuses_a_leading_axis_other_than_the_shards():
+    with pytest.raises(ValueError, match="leading axis"):
+        _mesh(4).all_to_all([torch.zeros(3, 2)] * 4)

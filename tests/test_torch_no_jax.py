@@ -10,8 +10,20 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 PKG = REPO / "nbody_tpu_torch"
 
 _PROBE = r"""
+import importlib.abc
 import pkgutil
 import sys
+
+
+class _Block(importlib.abc.MetaPathFinder):
+    # Refuse jax and the JAX package outright, not only afterwards.
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "nbody_tpu"):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+
+sys.meta_path.insert(0, _Block())
 
 import nbody_tpu_torch
 
@@ -25,7 +37,13 @@ for name in ("nbody_tpu_torch.ops.fmm", "nbody_tpu_torch.ops.sparse_grid",
              "nbody_tpu_torch.parallel.mesh", "nbody_tpu_torch.parallel.ring",
              "nbody_tpu_torch.parallel.sharded_tree",
              "nbody_tpu_torch.parallel.dryrun",
-             "nbody_tpu_torch.utils.device_mesh"):
+             "nbody_tpu_torch.utils.device_mesh",
+             "nbody_tpu_torch.parallel.let_tree",
+             "nbody_tpu_torch.parallel.let_bvh", "nbody_tpu_torch.models",
+             "nbody_tpu_torch.models.scenarios",
+             "nbody_tpu_torch.utils.profiling",
+             "nbody_tpu_torch.utils.native", "nbody_tpu_torch.bench.sweep",
+             "nbody_tpu_torch.bench.analysis"):
     assert name in mods, name
 # Running the ring and a sharded tier on a CPU mesh, not only importing
 # them, loads no JAX either.
@@ -36,6 +54,11 @@ mesh = make_mesh([torch.device("cpu")] * 2)
 pos = torch.rand((64, 3), dtype=torch.float64)
 ring_brute_force(pos, torch.ones(64, dtype=torch.float64), mesh=mesh)
 fmm_sharded(pos, torch.ones(64, dtype=torch.float64), mesh=mesh, order=3)
+from nbody_tpu_torch.parallel import let_barnes_hut, let_bvh, let_fmm
+from nbody_tpu_torch.models import two_body_circular_orbit
+for let in (let_barnes_hut, let_fmm, let_bvh):
+    let(pos, torch.ones(64, dtype=torch.float64), mesh=mesh)
+two_body_circular_orbit("cpu")
 jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not jax_mods, jax_mods
 ref_mods = sorted(m for m in sys.modules

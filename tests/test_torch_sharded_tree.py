@@ -256,8 +256,16 @@ def test_registry_lists_multi_device_methods_only_on_a_mesh(
 def test_dryrun_multichip_on_a_cpu_mesh_of_4():
     """One ring leapfrog step at N = 64, then each tier at N = 2048 3D
     fp32 against the direct sum, with the JAX package's gates; the tree
-    tiers' errors are nonzero (dryrun raises otherwise)."""
+    tiers' errors are nonzero (dryrun raises otherwise). The three
+    body-sharded LET rows are among them, with the JAX package's gates
+    (BH 1.3e-2, FMM 5e-4, BVH 1e-3)."""
     errors = dryrun.dryrun_multichip(_cpu_mesh(4), log=lambda *_: None)
-    assert len(errors) == 4
+    assert len(errors) == 7
     for (name, _, gate, nonzero) in dryrun.TIERS:
         assert errors[name] < gate and (errors[name] > 0 or not nonzero)
+    let = {name: gate for name, _, gate, _ in dryrun.TIERS
+           if name.startswith("LET")}
+    assert let == {"LET BH (body-sharded)": 1.3e-2,
+                   "LET FMM (body-sharded)": 5e-4,
+                   "LET BVH (body-sharded)": 1e-3}
+    assert all(0 < errors[name] < gate for name, gate in let.items())
