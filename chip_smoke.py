@@ -50,7 +50,15 @@ before it and read just after:
   FMM's phase breakdown, a ``torch.profiler`` trace of one Barnes-Hut
   evaluation with its kernel launches and the device's busy share, the
   native oracle built by ``make -C native``, every scenario of
-  ``models/``).
+  ``models/``);
+* the entry points outside the library (``nbody_tpu_torch.tools``): the
+  device-step bench (K Euler steps as one CUDA graph for the brute-force
+  methods, K1 among them, each graph held to as many eager steps; the
+  tree adapters eager, K6), ``simulate_1m`` on a Plummer sphere (the BVH
+  with ``caps_state``), the method smoke (every registered method within
+  its budget, 2D and 3D), the multichip tool on virtual shards (every
+  tier within its tolerance, K2 and K3 on the rings, the collective
+  census).
 
 It times every kernel against its plain version and gives each its bound
 (the least time the card could take for the same work). Every check raises on
@@ -263,6 +271,26 @@ NATIVE_N = 20_000
 # The native oracle and the port's f64 brute force sum the same f64 terms
 # in other orders: far below this scale-normalized bound.
 NATIVE_TOL = 1e-10
+# [19] The entry points outside the library (nbody_tpu_torch.tools): the
+# device-step bench's graph rows at STEP_N (2D, 3D; runs a K:
+# STEP_REPEATS), each graph of STEP_CHECK_K Euler steps held to as many
+# eager steps on G = 1 Plummer bodies (dt STEP_DT: they move), K1 to
+# STEP_K1_REL (its fp64 atomics add in no fixed order), the plain path bit
+# for bit; every tree adapter once at STEP_TREE, eager; simulate_1m at
+# SIM1M_N, SIM1M_STEPS steps; the method smoke at SMOKE_N, 2D and 3D; the
+# multichip tool at MULTI_TOOL_N on MULTI_TOOL_P virtual shards.
+ENTRY_SEED = 2000
+STEP_N = [1000, 100_000]
+STEP_REPEATS = [3, 1]
+STEP_CHECK_K = 4
+STEP_DT = 1e-3
+STEP_K1_REL = 1e-5
+STEP_TREE = (100_000, 3)
+SIM1M_N = 262_144
+SIM1M_STEPS = 3
+SMOKE_N = 20_000
+MULTI_TOOL_N = 4096
+MULTI_TOOL_P = "2,4"
 # The rate probe P: iterations of its plain-version check at the tool's
 # block, the tool's run, and the f32 FMA launch of the kernels line, timed
 # and held beside its plain version.
@@ -285,13 +313,6 @@ MATMUL_RAGGED = [(37, 2500, 7), (37, 2500, 150)]
 FP32_PEAK = 67e12
 HBM_RATE = 3.35e12
 MUFU_RATE = 132 * 16 * 1.98e9
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def check_close(name, got, want, tol=FORCE_TOL) -> float:
@@ -2306,12 +2327,165 @@ def phase_harness(cb, dev, default, smi) -> dict:
     return out
 
 
+def graph_matches_eager(dsb, name, system, unit) -> float:
+    """The state after STEP_CHECK_K Euler steps replayed from one CUDA graph
+    against as many eager steps: the largest difference over the largest
+    value, positions and velocities; raises past the method's bound."""
+    fn = dsb.step_force_fn(name, system.positions, system.masses, unit)
+    want = dsb.euler_steps(fn, system, STEP_CHECK_K, STEP_DT)
+    got = dsb.GraphSteps(fn, system, STEP_DT).run(STEP_CHECK_K)
+    rel = max(float((g - w).abs().max() / w.abs().max())
+              for g, w in ((got.positions, want.positions),
+                           (got.velocities, want.velocities)))
+    moved = float((want.positions - system.positions).abs().max())
+    exact = name == "BruteForce_Torch"
+    ok = moved > 0 and (torch.equal(got.positions, want.positions)
+                        and torch.equal(got.velocities, want.velocities)
+                        if exact else rel <= STEP_K1_REL)
+    print(f"    {name} N={system.n} {system.dim}D: {STEP_CHECK_K} steps "
+          f"replayed from one graph vs eager: rel diff {rel:.3e} "
+          f"({'bit for bit' if exact else f'tol {STEP_K1_REL:g}'}), "
+          f"bodies moved {moved:.3e}")
+    if not ok:
+        raise AssertionError(f"graph vs eager {name} N={system.n}: rel "
+                             f"{rel}, moved {moved}")
+    return rel
+
+
+def phase_entry(dev, smi) -> dict:
+    """[19] The entry points outside the library on the card: the
+    device-step bench (graph and eager rows; graph replays held to eager
+    steps), simulate_1m on a Plummer sphere, the method smoke at 2D and 3D,
+    the multichip tool with its collective census. K1 (the graph rows), K2
+    and K3 (the rings) and K6 (the tree adapters) must launch."""
+    import csv
+    import os
+    from nbody_tpu_torch import GravityConfig
+    from nbody_tpu_torch.state import plummer_system
+    from nbody_tpu_torch.tools import (device_step_bench as dsb,
+                                       method_smoke, multichip_scaling,
+                                       simulate_1m)
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(ENTRY_SEED)
+    unit = GravityConfig(G=1.0, softening=0.05)
+    out = {"card": smi}
+    print(f"[19] entry points on the card, {smi}")
+    reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        csv_path = os.path.join(tmp, "device_step_times.csv")
+        t0 = time.perf_counter()
+        # Min of 3 runs a K at the small N, one run at the large (whose
+        # steps take milliseconds to a second: the host's jitter is far
+        # below them).
+        rc = 0
+        for n_rows, reps in zip(STEP_N, STEP_REPEATS):
+            rc = rc or dsb.main(["-N", str(n_rows), "--dim", "2", "3",
+                                 "--methods", ",".join(dsb.GRAPH_METHODS),
+                                 "--repeats", str(reps), "--out", csv_path])
+        n, dim = STEP_TREE
+        trees = [m for m in dsb.ADAPTERS if m not in dsb.GRAPH_METHODS]
+        rc = rc or dsb.main(["-N", str(n), "--dim", str(dim), "--methods",
+                             ",".join(trees), "--repeats", "1", "--out",
+                             csv_path])
+        with open(csv_path) as f:
+            rows = list(csv.DictReader(f))
+        out["device_step_s"] = time.perf_counter() - t0
+        want = len(STEP_N) * 2 * len(dsb.GRAPH_METHODS) + len(trees)
+        dispatch = {(r["Method"], r["Dispatch"]) for r in rows}
+        if rc or len(rows) != want or dispatch != {
+                (m, "graph") for m in dsb.GRAPH_METHODS} | {
+                (m, "eager") for m in trees}:
+            raise AssertionError(f"device_step_bench: rc {rc}, rows {rows}")
+        out["device_step_rows"] = [
+            {"n": int(r["Bodies"]), "method": r["Method"],
+             "dim": int(r["Dimension"]), "step_ms": 1e3 * float(
+                 r["StepTime(s)"]), "steps": int(r["Steps"]),
+             "dispatch": r["Dispatch"]} for r in rows]
+        for r in out["device_step_rows"]:
+            print(f"    row N={r['n']} {r['dim']}D {r['method']}: "
+                  f"{r['step_ms']:.6f} ms/step, {r['dispatch']}, "
+                  f"differenced over {r['steps']} steps")
+
+        out["graph_vs_eager_rel"] = {}
+        for d in (2, 3):
+            for n in STEP_N:
+                bodies = plummer_system(n, d, generator=gen, device=dev)
+                for name in dsb.GRAPH_METHODS:
+                    out["graph_vs_eager_rel"][f"{name}_{n}_{d}d"] = \
+                        graph_matches_eager(dsb, name, bodies, unit)
+
+        json_path = os.path.join(tmp, "simulate_1m.json")
+        t0 = time.perf_counter()
+        rc = simulate_1m.main(["--n", str(SIM1M_N), "--steps",
+                               str(SIM1M_STEPS), "--out", json_path])
+        out["simulate_s"] = time.perf_counter() - t0
+        if rc:
+            raise AssertionError(f"simulate_1m: rc {rc}")
+        with open(json_path) as f:
+            sim = json.load(f)
+        out["simulate"] = {k: sim[k] for k in (
+            "n", "steps", "relative_energy_drift", "seed_eval_s",
+            "step_wall_s", "energy_s")}
+        if not math.isfinite(sim["relative_energy_drift"]):
+            raise AssertionError(f"simulate_1m drift {sim}")
+
+        out["method_smoke"] = {}
+        t0 = time.perf_counter()
+        for d in (2, 3):
+            log = io.StringIO()
+            with contextlib.redirect_stdout(log):
+                rc = method_smoke.main(["-N", str(SMOKE_N), "--dim", str(d)])
+            print("    " + log.getvalue().strip().replace("\n", "\n    "))
+            if rc:
+                raise AssertionError(f"method_smoke {d}D: rc {rc}")
+            out["method_smoke"][f"{d}d"] = {
+                m.group(1): float(m.group(2)) for m in re.finditer(
+                    r"^\s+(\S+)\s+err=(\S+)", log.getvalue(), re.M)}
+        out["method_smoke_s"] = time.perf_counter() - t0
+
+        mc_path = os.path.join(tmp, "multichip_scaling.json")
+        t0 = time.perf_counter()
+        rc = multichip_scaling.main(["--n", str(MULTI_TOOL_N),
+                                     "--mesh-sizes", MULTI_TOOL_P,
+                                     "--out", mc_path])
+        out["multichip_s"] = time.perf_counter() - t0
+        if rc:
+            raise AssertionError(f"multichip_scaling: rc {rc}")
+        with open(mc_path) as f:
+            mc = json.load(f)["tiers"]
+        for p in map(int, MULTI_TOOL_P.split(",")):
+            rot = mc["ring_one_sided"][str(p)]["collectives"]["rotate"]
+            print(f"    one-sided ring P={p}: {rot['count']} rotates "
+                  f"(P - 1 = {p - 1}), {rot['out_bytes']} bytes")
+            if rot["count"] != p - 1:
+                raise AssertionError(f"one-sided ring census P={p}: {rot}")
+        out["census_p4"] = {t: mc[t]["4"]["collectives"] for t in mc
+                            if "collectives" in mc[t].get("4", {})}
+        out["multichip_err"] = {f"{t}_p{p}": row.get("err_vs_direct")
+                                for t, by_p in mc.items()
+                                for p, row in by_p.items()}
+    out["launches"] = {k: v for k, v in counts().items() if v}
+    print(f"    [19] launches: {out['launches']}")
+    for k in ("symmetric", "precise", "sym_tile", "near_field"):
+        if not counts()[k]:
+            raise AssertionError(f"[19]: kernel {k} never launched")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"    [19] took {out['seconds']:.1f} s (device-step "
+          f"{out['device_step_s']:.1f}, simulate_1m {out['simulate_s']:.1f}, "
+          f"method smoke {out['method_smoke_s']:.1f}, multichip "
+          f"{out['multichip_s']:.1f})")
+    return out
+
+
 def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, fmm, pr,
-                 ptxas, multi) -> list:
+                 ptxas, multi, entry) -> list:
     """The kernels JSON line: every kernel with its launches on its path,
     its error against its plain version, its times and its bound; K2, K3
     and K6 also with their launches on [17]'s multi-device paths (the
-    paths' own times are in :func:`multi_line`)."""
+    paths' own times are in :func:`multi_line`); K1, K2, K3 and K6 with
+    their launches on [19]'s entry points (the graph rows' K1 counted at
+    capture, once a captured launch)."""
+    entry_launches = entry["launches"]
     from nbody_tpu_torch.tools import microbench as mb
     # Bounds from the JAX kernels' own operation counts per pair
     # (pallas_brute.py:256, :331, :338, :686, :963; pallas_p2p.py:89), on
@@ -2358,6 +2532,7 @@ def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, fmm, pr,
          "bound_ms_n262144_3d": bounds["K1_3d"]["bound_ms"],
          "ptxas": {k: v for k, v in n3_ptxas.items()
                    if k.endswith(",1>") or k.startswith("diagonal")},
+         "entry_launches": entry_launches.get("symmetric", 0),
          **bounds["K1"], "library_ms": None},
         {"name": "K2 precise (one-sided tile)", "route": "cuda",
          "source": "nbody_tpu_torch/csrc/precise.cu",
@@ -2366,7 +2541,9 @@ def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, fmm, pr,
          "ms": t["K2"], "plain_ms": t["K2_plain"], "timed_at": timed_at,
          "ms_n1048576_2d": big["precise"],
          "ring_launches": ring_launches["precise"],
-         "ring_shards": MULTI_SHARDS, **bounds["K2"], "library_ms": None},
+         "ring_shards": MULTI_SHARDS,
+         "entry_launches": entry_launches.get("precise", 0),
+         **bounds["K2"], "library_ms": None},
         {"name": "K3 sym tile (Newton-3 rectangle, segmented driver)",
          "route": "cuda", "source": "nbody_tpu_torch/csrc/sym_tile.cu",
          "replaces": "nbody_tpu/ops/pallas_brute.py:497",
@@ -2379,6 +2556,7 @@ def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, fmm, pr,
          "bound_ms_n262144_3d": bounds["K3_3d"]["bound_ms"],
          "ptxas": {k: v for k, v in n3_ptxas.items()
                    if k.startswith("newton3") and k.endswith(",0>")},
+         "entry_launches": entry_launches.get("sym_tile", 0),
          **bounds["K3"], "library_ms": None},
         {"name": "K4 fused small-N steps", "route": "cuda",
          "source": "nbody_tpu_torch/csrc/fused_steps.cu",
@@ -2411,6 +2589,7 @@ def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, fmm, pr,
                               "fmm": fmm["launches"]},
          "sharded_launches": {"barnes_hut": multi["bh_launches"],
                               "fmm": multi["fmm_launches"]},
+         "entry_launches": entry_launches.get("near_field", 0),
          "max_abs_err": k6["max_abs_err"],
          "ms": bh["k6_ms"], "plain_ms": bh["k6_plain_ms"],
          "timed_at": "one launch of the path, N=1e6 2D theta=0.25, every "
@@ -2492,6 +2671,7 @@ def main() -> int:
     from nbody_tpu_torch.ops import cuda_brute as cb
     from nbody_tpu_torch.ops.brute_force import brute_force_blocked
     from nbody_tpu_torch.state import plummer_system, random_system
+    from nbody_tpu_torch.tools.common import card_line
     from nbody_tpu_torch.utils import cuda_build
 
     # K5's plain version is a matmul: it must run in full fp32.
@@ -2499,8 +2679,8 @@ def main() -> int:
     t_run = time.perf_counter()
 
     # 1. Device.
-    smi = nvidia_smi_line()
     dev = torch.device("cuda", 0)
+    smi = card_line(dev)
     kind = torch.cuda.get_device_name(0)
     print(f"[1] nvidia-smi: {smi}")
     print(f"    torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -2658,12 +2838,14 @@ def main() -> int:
     phase_bvh(cb, dev, default, smi, sparse)
     multi = phase_multi(cb, dev, default, smi)
     harness = phase_harness(cb, dev, default, smi)
+    entry = phase_entry(dev, smi)
 
     kernels = kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh,
-                           fmm, pr, ptxas, multi)
-    print(f"chip_smoke: phases [1]-[18] in {time.perf_counter() - t_run:.1f} s")
+                           fmm, pr, ptxas, multi, entry)
+    print(f"chip_smoke: phases [1]-[19] in {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"multi_device": multi_line(multi, smi)}))
     print(json.dumps({"harness": harness}))
+    print(json.dumps({"entry_points": entry}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -124,26 +124,29 @@ def potential_energy_blocked(positions, masses,
     """:func:`potential_energy` in [B, N] row tiles (scales to N ≥ 1e6).
 
     Self pairs and padding rows are skipped by index, never by d², so
-    coincident distinct bodies count as in the dense version.
+    coincident distinct bodies count as in the dense version. A tile is
+    built and scaled in place, so two [B, N] tensors are live at a time
+    (16 GiB at B = 2048, N = 2^20 in fp32; one per dimension and term would
+    not fit the card).
     """
     n, dim = positions.shape
     n_pad = -(-n // block_size) * block_size
-    dev = positions.device
     pos_p = torch.cat([positions, positions.new_zeros((n_pad - n, dim))])
     m_p = torch.cat([masses, masses.new_zeros((n_pad - n,))])
     soft2 = float(config.softening) ** 2
-    idx = torch.arange(n_pad, device=dev)
     total = positions.new_zeros(())
     for i0 in range(0, n_pad, block_size):
         tp = pos_p[i0:i0 + block_size]
-        tm = m_p[i0:i0 + block_size]
-        _, d2 = _diffs_d2(tp, pos_p)
-        inv_r = torch.rsqrt(d2 + soft2)
-        ti = idx[i0:i0 + block_size]
-        skip = ((ti[:, None] == idx[None, :]) | (ti[:, None] >= n)
-                | (idx[None, :] >= n))
-        pair = torch.where(skip, torch.zeros_like(inv_r),
-                           tm[:, None] * m_p[None, :] * inv_r)
+        d2 = positions.new_zeros((block_size, n_pad))
+        for d in range(dim):
+            diff = pos_p[None, :, d] - tp[:, d, None]
+            d2.add_(diff.square_())
+        del diff
+        inv_r = d2.add_(soft2).rsqrt_()
+        inv_r[:, n:] = 0.0  # padding sources
+        inv_r[max(0, n - i0):] = 0.0  # padding targets
+        inv_r[:, i0:i0 + block_size].fill_diagonal_(0.0)  # self pairs
+        pair = inv_r.mul_(m_p[i0:i0 + block_size, None] * m_p[None, :])
         total = total + torch.sum(pair)
     return -0.5 * config.G * total
 

@@ -105,7 +105,7 @@ def let_bvh(
     acc = mesh.per_shard(lambda r: bvh_accel_sorted(trees[r], **walk))
     src = [(t.node_table, t.body_table) for t in trees]
     for _ in range(p - 1):
-        src = list(zip(*(mesh.rotate(list(x)) for x in zip(*src))))
+        src = mesh.rotate(src)
         mesh.per_shard(lambda r: acc[r].add_(bvh_accel_sorted(
             trees[r], source=src[r], **walk)))
 

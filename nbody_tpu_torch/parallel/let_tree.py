@@ -401,7 +401,7 @@ def _near_field(mesh: Mesh, chunks, *, k, softening, halo_cap, leaf_batch):
 
     # Step 0 holds the shard's own block, which no halo pair reads.
     for s in range(1, p):
-        blk = list(zip(*(mesh.rotate(list(x)) for x in zip(*blk))))
+        blk = mesh.rotate(blk)
         mesh.per_shard(lambda r: step(r, s))
 
     def fold(r):

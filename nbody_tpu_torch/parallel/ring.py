@@ -1,10 +1,10 @@
 """Ring brute force over a device mesh: shard the targets, rotate the sources.
 
 Port of ``nbody_tpu.parallel.ring``. Each shard owns a block of target
-bodies and its force accumulator; source blocks travel around the ring with
-:meth:`Mesh.ppermute`, one hop a step, so after P steps every shard has
-summed the forces of every source block. Targets are disjoint, so no sum
-across shards is needed.
+bodies and its force accumulator; source blocks (positions and masses in
+one :meth:`Mesh.rotate`) travel around the ring one hop a step, so after P
+steps and P − 1 hops every shard has summed the forces of every source
+block. Targets are disjoint, so no sum across shards is needed.
 
 **Newton-3 ring** (the default): each unordered shard pair once. The self
 block goes through the one-sided engine; ⌈(P−1)/2⌉ forward hops each run
@@ -24,6 +24,8 @@ What differs from the JAX package, and why:
 * One process drives the shards (``parallel/mesh.py``): ``lax.scan`` over
   the ring steps is a Python loop over steps and shards, and each shard's
   launches run with its card current.
+* The one-sided ring makes P − 1 hops where the JAX scan makes P (its last
+  brings every block home and is not read).
 * At the even-P half step the shards b ≥ P/2 launch nothing, where the JAX
   program evaluates their tile and multiplies it by 0: their zero partials
   add nothing, so the numbers are the same, with P/2 fewer K3 launches.
@@ -96,14 +98,17 @@ def _keeps_half_step(s: int, p: int, shard: int) -> bool:
 
 
 def _ring_one_sided(mesh: Mesh, pos, mass, softening, local_accel):
-    """P steps: each shard's tile against the resident sources, then one
-    hop of the sources."""
+    """P steps: each shard's tile against the resident sources, with one
+    hop of the sources (positions and masses together) between steps:
+    P − 1 hops, as the P-th would only bring every block home."""
+    p = mesh.num_shards
     acc = [torch.zeros_like(x) for x in pos]
-    src_pos, src_mass = list(pos), list(mass)
-    for _ in range(mesh.num_shards):
+    src = list(zip(pos, mass))
+    for s in range(p):
         acc = mesh.per_shard(lambda r: acc[r] + local_accel(
-            pos[r], src_pos[r], src_mass[r], softening))
-        src_pos, src_mass = mesh.rotate(src_pos), mesh.rotate(src_mass)
+            pos[r], src[r][0], src[r][1], softening))
+        if s < p - 1:
+            src = mesh.rotate(src)
     return acc
 
 
@@ -115,12 +120,12 @@ def _ring_symmetric(mesh: Mesh, pos, mass, softening, local_accel,
     p = mesh.num_shards
     acc = mesh.per_shard(lambda r: local_accel(pos[r], pos[r], mass[r],
                                                softening))
-    src_pos, src_mass = list(pos), list(mass)
+    src = list(zip(pos, mass))
     parts = []
     for s in range(1, _forward_steps(p) + 1):
-        src_pos, src_mass = mesh.rotate(src_pos), mesh.rotate(src_mass)
+        src = mesh.rotate(src)
         tiles = mesh.per_shard(lambda r: sym_accel(
-            pos[r], mass[r], src_pos[r], src_mass[r], softening)
+            pos[r], mass[r], src[r][0], src[r][1], softening)
             if _keeps_half_step(s, p, r) else None)
         acc = [a if t is None else a + t[0] for a, t in zip(acc, tiles)]
         parts.append([None if t is None else t[1] for t in tiles])
@@ -250,11 +255,11 @@ def ring_all_pairs_segmented(
         return (accs[0] if nseg == 1 else torch.cat(accs)), part
 
     acc = mesh.per_shard(lambda r: full_tile(r, pos[r], mass[r], True)[0])
-    src_pos, src_mass = list(pos), list(mass)
+    src = list(zip(pos, mass))
     for s in range(1, _forward_steps(p) + 1):
-        src_pos, src_mass = mesh.rotate(src_pos), mesh.rotate(src_mass)
+        src = mesh.rotate(src)
         tiles = mesh.per_shard(
-            lambda r: full_tile(r, src_pos[r], src_mass[r], False)
+            lambda r: full_tile(r, src[r][0], src[r][1], False)
             if _keeps_half_step(s, p, r)
             else (torch.zeros_like(pos[r]), torch.zeros_like(pos[r])))
         # The share on shard b belongs to block b − s: s reverse hops home.

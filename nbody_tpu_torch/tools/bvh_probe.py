@@ -34,6 +34,8 @@ import time
 
 import torch
 
+from .common import card_line
+
 
 def _bodies(n, dim, plummer, seed, dev):
     from ..config import GravityConfig
@@ -161,10 +163,7 @@ def main(argv=None) -> int:
     if args.path:
         _child(args)
         return 0
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card_line(torch.device("cuda", 0))
     kind = "Plummer (G=1, softening 4/N)" if args.plummer else "uniform"
     record = {"n": args.N, "dim": args.dim, "bodies": kind,
               "theta": args.theta, "seed": args.seed, "device": smi}

@@ -12,6 +12,11 @@ depend on timing), :meth:`Mesh.pmin` / :meth:`Mesh.pmax`,
 device share are one tensor object, so work replicated in the JAX program
 (:meth:`Mesh.per_device`) runs once per distinct device, not once per
 shard. A tensor whose device type is not the mesh's raises.
+
+:meth:`Mesh.census` counts the collectives a block of code calls on the
+mesh, the counterpart of the JAX package's census of the collectives XLA
+compiled (``tools/multichip_scaling.py``). It is off unless the context
+manager is open; off, each collective pays one branch.
 """
 
 from __future__ import annotations
@@ -21,6 +26,19 @@ import dataclasses
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
+
+
+def _leaves(x) -> list:
+    """The tensors of ``x``: a tensor, or a tuple or list of them."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    return [t for v in x for t in _leaves(v)]
+
+
+def _zeros_like(x):
+    if isinstance(x, torch.Tensor):
+        return torch.zeros_like(x)
+    return type(x)(_zeros_like(v) for v in x)
 
 
 def _move(x, device: torch.device):
@@ -42,6 +60,10 @@ class Mesh:
     """An ordered 1-D mesh: shard r runs on ``devices[r]``."""
 
     devices: Tuple[torch.device, ...]
+    # The open census's record (:meth:`census`), None when it is off; set
+    # through object.__setattr__, as the mesh is otherwise immutable.
+    census_record: Optional[dict] = dataclasses.field(
+        default=None, compare=False, repr=False)
 
     def __post_init__(self):
         if not self.devices:
@@ -63,9 +85,37 @@ class Mesh:
     def distinct_devices(self) -> List[torch.device]:
         return list(dict.fromkeys(self.devices))
 
+    @contextlib.contextmanager
+    def census(self):
+        """Count the collectives called on this mesh while the block runs.
+
+        Yields ``{op: {"count": calls, "out_bytes": bytes}}``, filled as the
+        block runs: ``op`` is the method's name (``ppermute``, ``rotate``,
+        ``reduce``, ``psum``, ``pmin``, ``pmax``, ``all_gather``,
+        ``all_to_all``); ``out_bytes`` sums each call's output over the
+        shards, as the JAX census sums each device's output shapes. One
+        call that carries a tuple a shard (the ring's positions and masses)
+        counts once, as XLA's combined collective does. Nested censuses:
+        the inner one records, the outer resumes after it.
+        """
+        outer = self.census_record
+        record: dict = {}
+        object.__setattr__(self, "census_record", record)
+        try:
+            yield record
+        finally:
+            object.__setattr__(self, "census_record", outer)
+
+    def _count(self, op: str, outs) -> None:
+        row = self.census_record.setdefault(op, {"count": 0, "out_bytes": 0})
+        row["count"] += 1
+        row["out_bytes"] += sum(t.numel() * t.element_size()
+                                for t in _leaves(outs))
+
     def check(self, *tensors) -> None:
-        """Raise unless every tensor's device type is the mesh's."""
-        for t in tensors:
+        """Raise unless every tensor's device type is the mesh's (tuples
+        and lists of tensors are looked into)."""
+        for t in _leaves(tensors):
             if t.device.type != self.device_type:
                 raise ValueError(
                     f"a tensor on {t.device} given to a mesh of "
@@ -102,22 +152,32 @@ class Mesh:
         distinct device, shared by that device's shards."""
         return self.per_device(lambda r: _move(x, self.devices[r]))
 
+    def _permute(self, xs, perm) -> list:
+        self.check(*xs)
+        out: list = [None] * self.num_shards
+        for src, dst in perm:
+            out[dst] = _move(xs[src], self.devices[dst])
+        return [_zeros_like(xs[r]) if o is None else o
+                for r, o in enumerate(out)]
+
     def ppermute(self, xs: Sequence[torch.Tensor],
                  perm: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
-        """Shard ``src``'s tensor goes to shard ``dst`` for each (src, dst)
-        of ``perm``; a shard that receives nothing gets zeros, as in JAX."""
-        self.check(*xs)
-        out: List[Optional[torch.Tensor]] = [None] * self.num_shards
-        for src, dst in perm:
-            out[dst] = xs[src].to(self.devices[dst])
-        return [torch.zeros_like(xs[r]) if o is None else o
-                for r, o in enumerate(out)]
+        """Shard ``src``'s entry goes to shard ``dst`` for each (src, dst)
+        of ``perm``; a shard that receives nothing gets zeros, as in JAX.
+        An entry is a tensor or a tuple of tensors, moved together."""
+        out = self._permute(xs, perm)
+        if self.census_record is not None:
+            self._count("ppermute", out)
+        return out
 
     def rotate(self, xs: Sequence[torch.Tensor],
                hops: int = 1) -> List[torch.Tensor]:
         """:meth:`ppermute` by ``hops`` around the ring (r → r + hops)."""
         p = self.num_shards
-        return self.ppermute(xs, [(i, (i + hops) % p) for i in range(p)])
+        out = self._permute(xs, [(i, (i + hops) % p) for i in range(p)])
+        if self.census_record is not None:
+            self._count("rotate", out)
+        return out
 
     def _fold(self, op, xs: Sequence[torch.Tensor]) -> torch.Tensor:
         """``op`` over every shard's tensor in shard order 0 to P−1, on
@@ -131,30 +191,40 @@ class Mesh:
     def reduce(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
         """The sum of every shard's tensor, added in shard order 0 to P−1
         on ``devices[0]`` and left there."""
-        return self._fold(torch.add, xs)
+        out = self._fold(torch.add, xs)
+        if self.census_record is not None:
+            self._count("reduce", out)
+        return out
+
+    def _all_reduce(self, op: str, fold, xs) -> List[torch.Tensor]:
+        out = self.replicate(self._fold(fold, xs))
+        if self.census_record is not None:
+            self._count(op, out)
+        return out
 
     def psum(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """:meth:`reduce`, then placed on every shard's device."""
-        return self.replicate(self.reduce(xs))
+        return self._all_reduce("psum", torch.add, xs)
 
     def pmin(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """The elementwise minimum of every shard's tensor, placed on every
         shard's device."""
-        return self.replicate(self._fold(torch.minimum, xs))
+        return self._all_reduce("pmin", torch.minimum, xs)
 
     def pmax(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """The elementwise maximum of every shard's tensor, placed on every
         shard's device."""
-        return self.replicate(self._fold(torch.maximum, xs))
+        return self._all_reduce("pmax", torch.maximum, xs)
 
     def all_gather(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """The shards' tensors concatenated in shard order along axis 0,
         once on each distinct device, placed on every shard's device."""
         self.check(*xs)
-        if len(xs) == 1:
-            return list(xs)
-        return self.per_device(lambda r: torch.cat(
-            [x.to(self.devices[r]) for x in xs]))
+        out = list(xs) if len(xs) == 1 else self.per_device(
+            lambda r: torch.cat([x.to(self.devices[r]) for x in xs]))
+        if self.census_record is not None:
+            self._count("all_gather", out)
+        return out
 
     def all_to_all(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
         """Each ``xs[q]`` is [P, ...]: shard r receives the [P, ...] stack of
@@ -166,5 +236,8 @@ class Mesh:
             if x.shape[0] != p:
                 raise ValueError(f"all_to_all needs a leading axis of {p} "
                                  f"(the shards), got {tuple(x.shape)}")
-        return [torch.stack([x[r].to(d) for x in xs])
-                for r, d in enumerate(self.devices)]
+        out = [torch.stack([x[r].to(d) for x in xs])
+               for r, d in enumerate(self.devices)]
+        if self.census_record is not None:
+            self._count("all_to_all", out)
+        return out

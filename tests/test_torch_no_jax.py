@@ -43,7 +43,18 @@ for name in ("nbody_tpu_torch.ops.fmm", "nbody_tpu_torch.ops.sparse_grid",
              "nbody_tpu_torch.models.scenarios",
              "nbody_tpu_torch.utils.profiling",
              "nbody_tpu_torch.utils.native", "nbody_tpu_torch.bench.sweep",
-             "nbody_tpu_torch.bench.analysis"):
+             "nbody_tpu_torch.bench.analysis",
+             "nbody_tpu_torch.tools.common",
+             "nbody_tpu_torch.tools.device_step_bench",
+             "nbody_tpu_torch.tools.simulate_1m",
+             "nbody_tpu_torch.tools.method_smoke",
+             "nbody_tpu_torch.tools.run_full_sweep",
+             "nbody_tpu_torch.tools.prune_superseded",
+             "nbody_tpu_torch.tools.compare_vs_baseline",
+             "nbody_tpu_torch.tools.multichip_scaling",
+             "nbody_tpu_torch.examples",
+             "nbody_tpu_torch.examples.galaxy_demo",
+             "nbody_tpu_torch.examples.multichip_ring"):
     assert name in mods, name
 # Running the ring and a sharded tier on a CPU mesh, not only importing
 # them, loads no JAX either.
@@ -59,6 +70,10 @@ from nbody_tpu_torch.models import two_body_circular_orbit
 for let in (let_barnes_hut, let_fmm, let_bvh):
     let(pos, torch.ones(64, dtype=torch.float64), mesh=mesh)
 two_body_circular_orbit("cpu")
+with mesh.census() as census:
+    ring_brute_force(pos, torch.ones(64, dtype=torch.float64), mesh=mesh,
+                     symmetric=False)
+assert census["rotate"]["count"] == 1, census
 jax_mods = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
 assert not jax_mods, jax_mods
 ref_mods = sorted(m for m in sys.modules
