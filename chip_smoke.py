@@ -58,7 +58,13 @@ before it and read just after:
   with ``caps_state``), the method smoke (every registered method within
   its budget, 2D and 3D), the multichip tool on virtual shards (every
   tier within its tolerance, K2 and K3 on the rings, the collective
-  census).
+  census);
+* the repo's probes (the 13 counterparts of ``tools/`` in
+  ``nbody_tpu_torch.tools``: phase splits, clustered stress, big-N
+  Barnes-Hut, near-field and tuning sweeps, BVH benches, the small-N floor,
+  the segmented check, the brute-force variants, the narrow products), each
+  through its ``main`` with its record held to its gate and no row failed
+  (K1-K6 and P's product launched on their probes).
 
 It times every kernel against its plain version and gives each its bound
 (the least time the card could take for the same work). Every check raises on
@@ -291,6 +297,45 @@ SIM1M_STEPS = 3
 SMOKE_N = 20_000
 MULTI_TOOL_N = 4096
 MULTI_TOOL_P = "2,4"
+# [20] The repo's probes (nbody_tpu_torch.tools), each through its
+# main(argv) with the launch counts set to 0 just before it and read just
+# after: (module, argv, the kernels it must launch). Where the JAX tool's
+# default run is short it runs as is; clustered_phase, bh_bigN_probe,
+# bvh_bench and bvh_far_flip_probe are cut in depth. Their gates:
+# PROBE_TOL, the grid tier's theta = 0.25 gate of PERF.md section 2, on
+# clustered_stress's two sampled errors and local_leaf_check's point and
+# hier errors; each K6 row of bh_near_probe within twice K6_ULPS of the
+# plain row's largest force (both are fp32); brute_variants' checksums
+# within PROBE_CHECKSUM_REL of the blocked oracle's, K5's rows within
+# PROBE_CHECKSUM_REL_MXU, the JAX package's bound for its sorted form
+# (tests/test_pallas_brute.py:131; its cancellation biases the sum: the
+# mxu rows read 0.90-1.01e-4 at 2^20 2D on the H100, K1 and K2 0); P's
+# product within MATMUL_TOL of its f64 sum; smalln_floor's K1 graph within
+# STEP_K1_REL of its eager steps.
+PROBES = [
+    ("tree_phase_bench", ["--n", "1048576", "--dim", "2"], ("near_field",)),
+    ("tree_phase_bench", ["--n", "1048576", "--dim", "2", "--fmm"], ()),
+    ("clustered_stress", ["--n", "100000"], ()),
+    ("clustered_phase", ["--n", "100000"], ()),
+    ("bh_bigN_probe", ["--cases", "2000000:2"], ("near_field",)),
+    ("bh_near_probe", ["--n", "100000", "--dim", "3", "--impls",
+                       "plain,cuda"], ("near_field",)),
+    ("bh_tune", ["--n", "100000", "--dim", "2"], ("near_field",)),
+    ("bvh_bench", ["--cases", "100000:2,100000:3"], ()),
+    ("bvh_far_flip_probe", ["--cases", "200000:2,200000:3", "--samples",
+                            "256"], ()),
+    ("local_leaf_check", ["-N", "20000", "--dim", "3", "--time"],
+     ("near_field",)),
+    ("smalln_floor", ["--n", "1000", "--dim", "2"],
+     ("symmetric", "fused_steps")),
+    ("segmented_probe", [], ("symmetric", "sym_tile")),
+    ("brute_variants", ["--n", "1048576", "--dim", "2"],
+     ("precise", "symmetric", "mxu")),
+    ("mxu_narrow_bench", [], ("matmul_probe",)),
+]
+PROBE_TOL = 1e-3
+PROBE_CHECKSUM_REL = 1e-4
+PROBE_CHECKSUM_REL_MXU = 3e-4
 # The rate probe P: iterations of its plain-version check at the tool's
 # block, the tool's run, and the f32 FMA launch of the kernels line, timed
 # and held beside its plain version.
@@ -2477,8 +2522,111 @@ def phase_entry(dev, smi) -> dict:
     return out
 
 
+def failed_rows(record, where="") -> list:
+    """Every ``error`` entry of a probe's record, with where it stands."""
+    if isinstance(record, dict):
+        found = [f"{where}: {record['error']}"] if "error" in record else []
+        for key, value in record.items():
+            found += failed_rows(value, f"{where}.{key}")
+        return found
+    if isinstance(record, list):
+        return [e for i, v in enumerate(record)
+                for e in failed_rows(v, f"{where}[{i}]")]
+    return []
+
+
+def check_probe(name, rec) -> None:
+    """Raise unless a probe's record passes its gate (PROBES' comment)."""
+    def need(ok, what):
+        if not ok:
+            raise AssertionError(f"[20] {name}: {what}")
+    if name == "clustered_stress":
+        need(rec["dense_grid_guard_refused"], "the dense layout ran")
+        for key in ("bvh_sampled_norm_error_vs_f64",
+                    "sparse_grid_sampled_norm_error_vs_f64"):
+            need(rec[key] < PROBE_TOL, f"{key} {rec[key]}")
+    elif name == "local_leaf_check":
+        errs = {r["far_impl"]: r["err"] for r in rec["rows"]}
+        need(all(math.isfinite(r["err"]) and math.isfinite(r["acc"])
+                 for r in rec["rows"]), f"rows {rec['rows']}")
+        need(errs["point"] < PROBE_TOL and errs["hier"] < PROBE_TOL,
+             f"errors {errs}")
+    elif name == "bh_near_probe":
+        first = {}
+        for r in rec["rows"]:
+            key = (r["level"], r["batch"])
+            if key not in first:
+                first[key] = r
+            elif r["impl"] == "cuda":
+                tol = max(1e-5, 2 * K6_ULPS * 2.0 ** -24
+                          * first[key]["max_over_rms"])
+                need(r["err_vs_first"] <= tol,
+                     f"K6 row {r} beyond {tol:.3e} of the plain row")
+        need(any(r["impl"] == "cuda" for r in rec["rows"]), "no K6 row")
+    elif name == "brute_variants":
+        for r in rec["rows"]:
+            tol = (PROBE_CHECKSUM_REL_MXU if r["label"].startswith("mxu")
+                   else PROBE_CHECKSUM_REL)
+            need(r["checksum_rel_diff"] < tol,
+                 f"checksum of {r['label']}: {r['checksum_rel_diff']}")
+    elif name == "mxu_narrow_bench":
+        for r in rec["rows"]:
+            if "err_vs_f64" in r:
+                need(r["err_vs_f64"] < MATMUL_TOL, f"P's product {r}")
+    elif name == "smalln_floor":
+        for key in rec["jax_keys"]:
+            need(rec[key]["per_step_s"] > 0, f"{key} {rec[key]}")
+        rel = rec["brute_force_cuda_symmetric"]["graph_vs_eager_rel"]
+        need(rel <= STEP_K1_REL, f"K1 graph vs eager {rel}")
+    elif name == "segmented_probe":
+        need(max(rec["err_seg3_vs_symmetric"], rec["err_seg5_vs_seg3"])
+             < 3e-4, f"errors {rec}")
+
+
+def phase_probes(smi) -> dict:
+    """[20] The repo's probes on the card, each through its main(argv)
+    (PROBES), its record held to its gate and its launches counted."""
+    import importlib
+    import os
+    t_phase = time.perf_counter()
+    print(f"[20] the repo's probes on the card, {smi}")
+    out = {"card": smi, "probes": [], "launches": {k: 0 for k in counts()}}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (name, argv, kernels) in enumerate(PROBES):
+            mod = importlib.import_module(f"nbody_tpu_torch.tools.{name}")
+            path = os.path.join(tmp, f"{i}_{name}.json")
+            print(f"    [20] {name} {' '.join(argv)}")
+            reset_launches()
+            t0 = time.perf_counter()
+            rc = mod.main(argv + ["--out", path])
+            seconds = time.perf_counter() - t0
+            launched = {k: v for k, v in counts().items() if v}
+            if rc:
+                raise AssertionError(f"[20] {name}: rc {rc}")
+            with open(path) as f:
+                rec = json.load(f)
+            bad = failed_rows(rec)
+            if bad:
+                raise AssertionError(f"[20] {name}: failed rows {bad}")
+            check_probe(name, rec)
+            missing = [k for k in kernels if not launched.get(k)]
+            stray = sorted(set(launched) - set(kernels))
+            print(f"    [20] {name}: {seconds:.1f} s, launches {launched}")
+            if missing or stray:
+                raise AssertionError(f"[20] {name}: launches {launched}, "
+                                     f"expected {kernels}")
+            for k, v in launched.items():
+                out["launches"][k] += v
+            out["probes"].append({"name": name, "argv": argv,
+                                  "seconds": seconds, "launches": launched})
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"    [20] launches: {out['launches']}")
+    print(f"    [20] took {out['seconds']:.1f} s")
+    return out
+
+
 def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, fmm, pr,
-                 ptxas, multi, entry) -> list:
+                 ptxas, multi, entry, probes) -> list:
     """The kernels JSON line: every kernel with its launches on its path,
     its error against its plain version, its times and its bound; K2, K3
     and K6 also with their launches on [17]'s multi-device paths (the
@@ -2486,6 +2634,7 @@ def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, fmm, pr,
     their launches on [19]'s entry points (the graph rows' K1 counted at
     capture, once a captured launch)."""
     entry_launches = entry["launches"]
+    probe_launches = probes["launches"]
     from nbody_tpu_torch.tools import microbench as mb
     # Bounds from the JAX kernels' own operation counts per pair
     # (pallas_brute.py:256, :331, :338, :686, :963; pallas_p2p.py:89), on
@@ -2533,6 +2682,7 @@ def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, fmm, pr,
          "ptxas": {k: v for k, v in n3_ptxas.items()
                    if k.endswith(",1>") or k.startswith("diagonal")},
          "entry_launches": entry_launches.get("symmetric", 0),
+         "probe_launches": probe_launches["symmetric"],
          **bounds["K1"], "library_ms": None},
         {"name": "K2 precise (one-sided tile)", "route": "cuda",
          "source": "nbody_tpu_torch/csrc/precise.cu",
@@ -2543,6 +2693,7 @@ def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, fmm, pr,
          "ring_launches": ring_launches["precise"],
          "ring_shards": MULTI_SHARDS,
          "entry_launches": entry_launches.get("precise", 0),
+         "probe_launches": probe_launches["precise"],
          **bounds["K2"], "library_ms": None},
         {"name": "K3 sym tile (Newton-3 rectangle, segmented driver)",
          "route": "cuda", "source": "nbody_tpu_torch/csrc/sym_tile.cu",
@@ -2557,6 +2708,7 @@ def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, fmm, pr,
          "ptxas": {k: v for k, v in n3_ptxas.items()
                    if k.startswith("newton3") and k.endswith(",0>")},
          "entry_launches": entry_launches.get("sym_tile", 0),
+         "probe_launches": probe_launches["sym_tile"],
          **bounds["K3"], "library_ms": None},
         {"name": "K4 fused small-N steps", "route": "cuda",
          "source": "nbody_tpu_torch/csrc/fused_steps.cu",
@@ -2572,6 +2724,7 @@ def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, fmm, pr,
          "stepped_ms_n2048_3d": t[f"stepped_{FUSED_N}_3d"],
          "bound_ms_n2048_3d": bounds["K4_3d"]["bound_ms"],
          "cluster_size": k4["cluster"],
+         "probe_launches": probe_launches["fused_steps"],
          "ptxas": {k: v for k, v in ptxas.items()
                    if k.startswith("fused_steps")},
          **bounds["K4"], "library_ms": None},
@@ -2580,7 +2733,8 @@ def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, fmm, pr,
          "replaces": "nbody_tpu/ops/pallas_brute.py:264",
          "launches": k5["launches"], "max_abs_err": k5["max_abs_err"],
          "ms": t["K5"], "plain_ms": t["K5_plain"], "timed_at": timed_at,
-         "k2_ms": t["K2"], **bounds["K5"], "library_ms": None},
+         "k2_ms": t["K2"], "probe_launches": probe_launches["mxu"],
+         **bounds["K5"], "library_ms": None},
         {"name": "K6 near field (tree kernel; window entry p2p_leaf)",
          "route": "cuda", "source": "nbody_tpu_torch/csrc/p2p_leaf.cu",
          "replaces": "nbody_tpu/ops/pallas_p2p.py:30",
@@ -2590,6 +2744,7 @@ def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, fmm, pr,
          "sharded_launches": {"barnes_hut": multi["bh_launches"],
                               "fmm": multi["fmm_launches"]},
          "entry_launches": entry_launches.get("near_field", 0),
+         "probe_launches": probe_launches["near_field"],
          "max_abs_err": k6["max_abs_err"],
          "ms": bh["k6_ms"], "plain_ms": bh["k6_plain_ms"],
          "timed_at": "one launch of the path, N=1e6 2D theta=0.25, every "
@@ -2624,6 +2779,7 @@ def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, fmm, pr,
          "fma_rate_per_s_run_of_10": pr["fma"]["rate_run_of_10"],
          "ptxas": {k: v for k, v in ptxas.items()
                    if k.startswith("rate_probe")},
+         "probe_launches": probe_launches["rate_probe"],
          **p_bounds["rate"], "library_ms": None},
         {"name": "P matmul probe (skinny fp32 SIMT GEMM, tiles in shared "
                  "memory)", "route": "cuda",
@@ -2639,6 +2795,7 @@ def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, fmm, pr,
          "max_abs_err_k4": mm[4]["max_abs_err"],
          "bound_ms_k4": p_bounds[4]["bound_ms"],
          "library_tf32_ms": pr["rates"]["matmul"][128]["matmul_tf32_ms"],
+         "probe_launches": probe_launches["matmul_probe"],
          **p_bounds[128], "library_ms": mm[128]["library_ms"]},
     ]
     return kernels
@@ -2839,13 +2996,15 @@ def main() -> int:
     multi = phase_multi(cb, dev, default, smi)
     harness = phase_harness(cb, dev, default, smi)
     entry = phase_entry(dev, smi)
+    probes = phase_probes(smi)
 
     kernels = kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh,
-                           fmm, pr, ptxas, multi, entry)
-    print(f"chip_smoke: phases [1]-[19] in {time.perf_counter() - t_run:.1f} s")
+                           fmm, pr, ptxas, multi, entry, probes)
+    print(f"chip_smoke: phases [1]-[20] in {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"multi_device": multi_line(multi, smi)}))
     print(json.dumps({"harness": harness}))
     print(json.dumps({"entry_points": entry}))
+    print(json.dumps({"probes": probes}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -195,18 +195,26 @@ def dense_layout_degenerate(capacity: int, n: int, leaf_level: int,
         capacity > 512 and capacity > 16 * mean_occ)
 
 
+class GridCapacityError(ValueError):
+    """The uniform grid refuses an input whose densest leaf is over the
+    capacity limit (:func:`check_grid_capacity`)."""
+
+
 def check_grid_capacity(capacity: int, n: int, leaf_level: int, dim: int,
                         what: str, limit: Optional[int] = None) -> None:
-    """Refuse, with guidance, to run a degenerate uniform grid."""
+    """Refuse, with the JAX package's guidance, to run a degenerate uniform
+    grid: raises :class:`GridCapacityError`."""
     limit = CLUSTERED_CAPACITY_LIMIT if limit is None else limit
     if capacity > limit:
         ncells = 1 << (dim * leaf_level)
-        raise ValueError(
+        raise GridCapacityError(
             f"{what}: the densest leaf cell holds {capacity} of {n} bodies "
             f"(leaf level {leaf_level}, {ncells} cells, mean occupancy "
             f"{n / ncells:.1f}) — this input is too clustered for the "
             f"uniform grid tree, whose near-field work scales with the max "
-            f"leaf occupancy squared. Pass leaf_level/capacity explicitly to "
+            f"leaf occupancy squared. Use bvh_forces (adaptive Hilbert-"
+            f"radix BVH, O(N) memory on any distribution) for strongly "
+            f"clustered inputs, or pass leaf_level/capacity explicitly to "
             f"override this guard.")
 
 

@@ -34,7 +34,8 @@ import time
 
 import torch
 
-from .common import card_line
+from .clustered_phase import padded_subset, walk_settings
+from .common import card_line, time_once
 
 
 def _bodies(n, dim, plummer, seed, dev):
@@ -45,16 +46,6 @@ def _bodies(n, dim, plummer, seed, dev):
         return (plummer_system(n, dim, generator=gen, device=dev),
                 GravityConfig(G=1.0, softening=4.0 / n))
     return random_system(n, dim, generator=gen, device=dev), GravityConfig()
-
-
-def _timed(fn):
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    res = fn()
-    end.record()
-    end.synchronize()
-    return res, start.elapsed_time(end)
 
 
 def _emit(**rec) -> None:
@@ -72,17 +63,19 @@ def _run_bvh(pos, mass, cfg, theta) -> None:
     from ..ops import bvh
     n, dim = pos.shape
     kb = dim * bvh.MAX_BITS[dim]
-    cap = min(1024 if dim == 2 else 8192, 2 * n)
-    walk = dict(leaf_size=16, theta=theta, softening=cfg.softening,
-                group_size=min(1024, n), batch=128, multipole="quad",
-                far_impl=bvh.resolve_bvh_far_impl(n), return_stats=True)
-    tree, ms = _timed(lambda: bvh.build_bvh(pos, mass, kb, quad=True))
+    cap, walk = walk_settings(n, dim, theta, cfg.softening,
+                              bvh.resolve_bvh_far_impl(n))
+    walk["return_stats"] = True
+    dev = pos.device
+    tree, ms = time_once(lambda: bvh.build_bvh(pos, mass, kb, quad=True),
+                         dev)
     _emit(phase="build", ms=ms)
-    _, ms = _timed(lambda: bvh.bvh_accel_sorted(
-        tree, **walk, frontier_width=cap, near_cap=cap, _debug_skip="near"))
+    _, ms = time_once(lambda: bvh.bvh_accel_sorted(
+        tree, **walk, frontier_width=cap, near_cap=cap, _debug_skip="near"),
+        dev)
     _emit(phase="walk_no_near", ms=ms, caps=cap)
-    (_, maxw, ncnt, over), ms = _timed(lambda: bvh.bvh_accel_sorted(
-        tree, **walk, frontier_width=cap, near_cap=cap))
+    (_, maxw, ncnt, over), ms = time_once(lambda: bvh.bvh_accel_sorted(
+        tree, **walk, frontier_width=cap, near_cap=cap), dev)
     need_w, need_nl = int(maxw), int(ncnt)
     ids = np.nonzero(over.cpu().numpy())[0]
     _emit(phase="walk", ms=ms, max_frontier=need_w, max_near=need_nl,
@@ -99,17 +92,16 @@ def _run_bvh(pos, mass, cfg, theta) -> None:
 
     w2, nl2 = cap, cap
     if ids.size and (need_w > chunked(cap) or need_nl > nl_chunked(cap)):
-        m = 1 << max(0, int(ids.size - 1).bit_length())
-        gids = torch.as_tensor(np.concatenate(
-            [ids, np.full(m - ids.size, ids[0])]), device=pos.device)
+        gids = torch.as_tensor(padded_subset(ids), device=dev)
+        m = gids.numel()
         for attempt in range(3):
             if need_w > chunked(w2):
                 w2 = min(2 * n, max(2 * chunked(w2), 2 * need_w))
             if need_nl > nl_chunked(nl2):
                 nl2 = min(2 * n, max(2 * nl2, 2 * need_nl))
-            (_, maxw, ncnt, _), ms = _timed(lambda: bvh.bvh_accel_sorted(
+            (_, maxw, ncnt, _), ms = time_once(lambda: bvh.bvh_accel_sorted(
                 tree, **walk, frontier_width=w2, near_cap=nl2,
-                group_ids=gids))
+                group_ids=gids), dev)
             need_w, need_nl = int(maxw), int(ncnt)
             _emit(phase=f"escalation_{attempt + 1}", ms=ms, groups=m,
                   frontier_width=w2, near_cap=nl2, max_frontier=need_w,
@@ -123,8 +115,8 @@ def _run_bvh(pos, mass, cfg, theta) -> None:
     base = torch.cuda.memory_allocated()
     bvh.HOST_READS["count"] = 0
     caps = {}
-    _, ms = _timed(lambda: bvh.bvh_forces(pos, mass, cfg, theta=theta,
-                                          caps_state=caps))
+    _, ms = time_once(lambda: bvh.bvh_forces(pos, mass, cfg, theta=theta,
+                                             caps_state=caps), dev)
     _emit(phase="eval", ms=ms, host_reads=bvh.HOST_READS["count"],
           peak_gib=(torch.cuda.max_memory_allocated() - base) / 2 ** 30,
           caps_state=caps)
@@ -133,8 +125,8 @@ def _run_bvh(pos, mass, cfg, theta) -> None:
 def _run_sparse(pos, mass, cfg, theta) -> None:
     from ..ops import grid_tree
     for phase in ("eval_cold", "eval"):
-        _, ms = _timed(lambda: grid_tree.barnes_hut_grid(pos, mass, cfg,
-                                                         theta=theta))
+        _, ms = time_once(lambda: grid_tree.barnes_hut_grid(
+            pos, mass, cfg, theta=theta), pos.device)
         _emit(phase=phase, ms=ms)
 
 

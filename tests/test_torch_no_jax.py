@@ -52,6 +52,19 @@ for name in ("nbody_tpu_torch.ops.fmm", "nbody_tpu_torch.ops.sparse_grid",
              "nbody_tpu_torch.tools.prune_superseded",
              "nbody_tpu_torch.tools.compare_vs_baseline",
              "nbody_tpu_torch.tools.multichip_scaling",
+             "nbody_tpu_torch.tools.tree_phase_bench",
+             "nbody_tpu_torch.tools.clustered_stress",
+             "nbody_tpu_torch.tools.clustered_phase",
+             "nbody_tpu_torch.tools.bh_bigN_probe",
+             "nbody_tpu_torch.tools.bh_near_probe",
+             "nbody_tpu_torch.tools.bh_tune",
+             "nbody_tpu_torch.tools.bvh_bench",
+             "nbody_tpu_torch.tools.bvh_far_flip_probe",
+             "nbody_tpu_torch.tools.local_leaf_check",
+             "nbody_tpu_torch.tools.smalln_floor",
+             "nbody_tpu_torch.tools.segmented_probe",
+             "nbody_tpu_torch.tools.brute_variants",
+             "nbody_tpu_torch.tools.mxu_narrow_bench",
              "nbody_tpu_torch.examples",
              "nbody_tpu_torch.examples.galaxy_demo",
              "nbody_tpu_torch.examples.multichip_ring"):
