@@ -23,6 +23,12 @@ Port of ``nbody_tpu.ops.bvh``. The tree and the walk are the JAX package's:
 * **Driver** (:func:`bvh_forces`): one evaluation, one host read-back of the
   high-water counts, and a re-walk of only the overflowed groups at raised
   capacities, seeded from ``caps_state``.
+* **Spans** (:mod:`..utils.profiling`, off by default): ``bvh.build``, a
+  batch's frontier loop ``bvh.frontier`` (counter ``bvh.walk_iters``), its
+  pass 2 ``bvh.near``, and each escalation round ``bvh.rewalk`` with its
+  read-back (counters ``bvh.escalations``, ``bvh.rewalk_groups``: the
+  padded subset's groups). The re-walks' loops and passes 2 count under
+  ``bvh.frontier`` and ``bvh.near`` too.
 
 What differs from the JAX package, and why:
 
@@ -69,6 +75,7 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_GRAVITY, GravityConfig
+from ..utils.profiling import count, span
 from .brute_force import _DIST2_GUARD
 from .grid_tree import _quad_pairs
 from .keys import MAX_BITS, hilbert_key
@@ -573,72 +580,77 @@ def bvh_accel_sorted(tree: BVHTree, leaf_size: int = 16, theta: float = 0.25,
         # its first columns, so chunk c holds work iff the batch's largest
         # count exceeds c·Wc (the JAX package's cond skips exactly those).
         width, near_max, it = 1, 0, 0
-        while it < max_depth and width > 0:
-            kids, leaves = [], []
-            for c in range(-(-width // Wc)):
-                fch = f[:, c * Wc:(c + 1) * Wc]
-                valid = fch != _INVALID
-                nt = table[torch.where(valid, fch, 0)]  # one row gather
-                l, r = nt[..., 0], nt[..., 1]
-                nmass = nt[..., 5]
-                com = nt[..., 6:6 + dim]
-                leafish = (r - l + 1 <= S) & valid
-                cdiff = com - center_g[:, None, :]
-                cdist = torch.sqrt(torch.sum(cdiff * cdiff, dim=-1))
-                # Group MAC, shrunk by the group radius so it holds for
-                # every member; MAC-passing leafish nodes go far too.
-                mac_ok = (nt[..., 4] < theta * (cdist - radius_g[:, None])) \
-                    & valid
-                near_take = leafish & ~mac_ok
-                expand = valid & ~leafish & ~mac_ok
-                if use_local:
-                    far_loc = mac_ok & (cdist > local_gate * radius_g[:, None])
-                    mac_inline = mac_ok & ~far_loc
-                else:
-                    mac_inline = mac_ok
-                if "far" not in _debug_skip:
-                    acc = _far_inline(acc, nt, nmass, com, pos_g,
-                                      mac_inline[:, None, :], soft2,
-                                      multipole, qpairs)
-                kids.append(torch.where(expand, nt[..., 2].to(torch.int64),
-                                        _INVALID))
-                kids.append(torch.where(expand, nt[..., 3].to(torch.int64),
-                                        _INVALID))
-                leaves.append(torch.where(near_take, fch, _INVALID))
-                if use_local:
-                    Sl = (nt[..., 6 + dim:6 + dim + len(qpairs)]
-                          * far_loc[..., None] if multipole == "quad"
-                          else None)
-                    da0, dJ, dH = local_coeffs(center_g, com,
-                                               nmass * far_loc, Sl,
-                                               softening=softening)
-                    la0, lJ, lH = la0 + da0, lJ + dJ, lH + dH
-            # Compaction by sort: _INVALID sorts to the end. The unwritten
-            # chunks of the JAX package's buffers are all _INVALID.
-            kids_buf = torch.cat(kids, dim=1)
-            nkids = (kids_buf != _INVALID).sum(dim=1)
-            overflow = overflow | (nkids > W)
-            maxw = torch.maximum(maxw, nkids)
-            leaf_buf = torch.cat(leaves, dim=1)
-            near_cnt = near_cnt + (leaf_buf != _INVALID).sum(dim=1)
-            overflow = overflow | (near_cnt > NL)
-            width, near_max = _read(torch.stack([nkids.amax(),
-                                                 near_cnt.amax()]))
-            width = min(width, W)
-            f = held(torch.sort(kids_buf, dim=1).values,
-                     max(1, -(-width // Wc)) * Wc)
-            near_ids = held(torch.sort(torch.cat([near_ids, leaf_buf], 1),
-                                       dim=1).values,
-                            -(-min(near_max, NL) // nl_chunk) * nl_chunk)
-            it += 1
-        if use_local:
-            acc = acc + eval_local(pos_g - center_g[:, None, :], la0, lJ, lH)
+        with span("bvh.frontier", dev):
+            while it < max_depth and width > 0:
+                kids, leaves = [], []
+                for c in range(-(-width // Wc)):
+                    fch = f[:, c * Wc:(c + 1) * Wc]
+                    valid = fch != _INVALID
+                    nt = table[torch.where(valid, fch, 0)]  # one row gather
+                    l, r = nt[..., 0], nt[..., 1]
+                    nmass = nt[..., 5]
+                    com = nt[..., 6:6 + dim]
+                    leafish = (r - l + 1 <= S) & valid
+                    cdiff = com - center_g[:, None, :]
+                    cdist = torch.sqrt(torch.sum(cdiff * cdiff, dim=-1))
+                    # Group MAC, shrunk by the group radius so it holds for
+                    # every member; MAC-passing leafish nodes go far too.
+                    mac_ok = (nt[..., 4]
+                              < theta * (cdist - radius_g[:, None])) & valid
+                    near_take = leafish & ~mac_ok
+                    expand = valid & ~leafish & ~mac_ok
+                    if use_local:
+                        far_loc = mac_ok & (cdist
+                                            > local_gate * radius_g[:, None])
+                        mac_inline = mac_ok & ~far_loc
+                    else:
+                        mac_inline = mac_ok
+                    if "far" not in _debug_skip:
+                        acc = _far_inline(acc, nt, nmass, com, pos_g,
+                                          mac_inline[:, None, :], soft2,
+                                          multipole, qpairs)
+                    kids.append(torch.where(expand, nt[..., 2].to(torch.int64),
+                                            _INVALID))
+                    kids.append(torch.where(expand, nt[..., 3].to(torch.int64),
+                                            _INVALID))
+                    leaves.append(torch.where(near_take, fch, _INVALID))
+                    if use_local:
+                        Sl = (nt[..., 6 + dim:6 + dim + len(qpairs)]
+                              * far_loc[..., None] if multipole == "quad"
+                              else None)
+                        da0, dJ, dH = local_coeffs(center_g, com,
+                                                   nmass * far_loc, Sl,
+                                                   softening=softening)
+                        la0, lJ, lH = la0 + da0, lJ + dJ, lH + dH
+                # Compaction by sort: _INVALID sorts to the end. The unwritten
+                # chunks of the JAX package's buffers are all _INVALID.
+                kids_buf = torch.cat(kids, dim=1)
+                nkids = (kids_buf != _INVALID).sum(dim=1)
+                overflow = overflow | (nkids > W)
+                maxw = torch.maximum(maxw, nkids)
+                leaf_buf = torch.cat(leaves, dim=1)
+                near_cnt = near_cnt + (leaf_buf != _INVALID).sum(dim=1)
+                overflow = overflow | (near_cnt > NL)
+                width, near_max = _read(torch.stack([nkids.amax(),
+                                                     near_cnt.amax()]))
+                width = min(width, W)
+                f = held(torch.sort(kids_buf, dim=1).values,
+                         max(1, -(-width // Wc)) * Wc)
+                near_ids = held(torch.sort(torch.cat([near_ids, leaf_buf], 1),
+                                           dim=1).values,
+                                -(-min(near_max, NL) // nl_chunk) * nl_chunk)
+                it += 1
+            if use_local:
+                acc = acc + eval_local(pos_g - center_g[:, None, :], la0,
+                                       lJ, lH)
+        count("bvh.walk_iters", it)
         # A walk past max_depth must poison, not drop its subtrees.
         overflow = overflow | (f != _INVALID).any(dim=1)
 
         if "near" not in _debug_skip:
-            acc = _near_pass(acc, near_ids, nl_chunk, table, bodies, pos_g,
-                             S, soft2)
+            with span("bvh.near", dev):
+                acc = _near_pass(acc, near_ids, nl_chunk, table, bodies,
+                                 pos_g, S, soft2)
         # Overflow is never truncated silently: poison the group.
         acc = torch.where(overflow[:, None, None], float("nan"), acc)
         return acc, maxw, near_cnt, overflow
@@ -701,7 +713,8 @@ def _bvh_eval(positions, masses, g, *, key_bits, quad, leaf_size, theta,
     """Build, walk with stats, unsort and G-scale: (forces, max frontier,
     max near count, per-group overflow, tree). The tree comes back so the
     escalation re-walk needs no second build."""
-    tree = build_bvh(positions, masses, key_bits, quad=quad)
+    with span("bvh.build", positions.device):
+        tree = build_bvh(positions, masses, key_bits, quad=quad)
     acc_sorted, maxw, ncnt, g_over = bvh_accel_sorted(
         tree, leaf_size=leaf_size, theta=theta, softening=softening,
         group_size=group_size, batch=batch, frontier_width=frontier_width,
@@ -811,10 +824,13 @@ def bvh_forces(
             w2 = min(2 * n, max(2 * chunked(w2), 2 * need_w))
         if need_nl > nl_chunked(nl2):
             nl2 = min(2 * n, max(2 * nl2, 2 * need_nl))
-        sub_acc, maxw2, ncnt2, _ = bvh_accel_sorted(
-            tree, frontier_width=w2, near_cap=nl2, return_stats=True,
-            group_ids=gids, **walk)
-        need_w, need_nl = _read(torch.stack([maxw2, ncnt2]))
+        with span("bvh.rewalk", positions.device):
+            sub_acc, maxw2, ncnt2, _ = bvh_accel_sorted(
+                tree, frontier_width=w2, near_cap=nl2, return_stats=True,
+                group_ids=gids, **walk)
+            need_w, need_nl = _read(torch.stack([maxw2, ncnt2]))
+        count("bvh.escalations")
+        count("bvh.rewalk_groups", M)
         if (need_w <= chunked(w2) and need_nl <= nl_chunked(nl2)) \
                 or (chunked(w2) >= 2 * n and nl2 >= 2 * n):
             break

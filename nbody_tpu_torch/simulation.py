@@ -17,6 +17,9 @@ is the grid tree (``ops/grid_tree.barnes_hut_grid``) at the configuration's
 CUDA tensors on the dense layout. ``"bvh"`` is the Hilbert radix BVH
 (``ops/bvh.bvh_forces``) with ``tree.max_bodies_per_leaf`` bodies a leaf,
 plain torch on the bodies' device.
+
+With spans on (``utils.profiling.enable_spans``), ``run`` puts each step in
+a ``sim.step`` span and each of its force calls in a ``sim.force`` span.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from .config import DEFAULT_GRAVITY, DEFAULT_TREE, GravityConfig, TreeConfig
 from .integrators import euler_step, leapfrog_step
 from .ops.brute_force import kinetic_energy, potential_energy
 from .state import System
+from .utils import profiling
 
 def _brute(gravity: GravityConfig, tree: TreeConfig, device: torch.device):
     if device.type == "cuda":
@@ -104,8 +108,11 @@ class Simulation:
         # Two force evaluations per leapfrog step, as nbody_tpu.simulation.
         step = euler_step if self.integrator == "euler" else leapfrog_step
         sys = self.system
+        device = sys.positions.device
+        forces_fn = profiling.spanned("sim.force", self.forces_fn, device)
         for _ in range(steps):
-            sys = step(sys, self.forces_fn, dt)
+            with profiling.span("sim.step", device):
+                sys = step(sys, forces_fn, dt)
         return dataclasses.replace(self, system=sys,
                                    step_count=self.step_count + steps)
 

@@ -1,16 +1,27 @@
 """The port's profiling helpers (nbody_tpu_torch.utils.profiling) on the
 CPU: PhaseTimer (perf_counter on the CPU; CUDA events only on a card),
-trace() as a no-op and as a torch.profiler Chrome trace, and the FMM's
-three-phase breakdown (the phases of tests/test_profiling.py)."""
+trace() as a no-op and as a torch.profiler Chrome trace, the FMM's
+three-phase breakdown (the phases of tests/test_profiling.py), and the
+program's spans and counters: off by default, on in the BVH's phases,
+named in a Chrome trace, never changing a result."""
 
 import json
 import time
 
+import numpy as np
+import pytest
 import torch
 
+from nbody_tpu_torch.config import GravityConfig
+from nbody_tpu_torch.ops import bvh as tb
+from nbody_tpu_torch.simulation import Simulation
 from nbody_tpu_torch.state import random_system
 from nbody_tpu_torch.utils import profiling
 from nbody_tpu_torch.utils.profiling import PhaseTimer, phase_breakdown_fmm
+
+# Several test processes share the machine's cores: a few torch threads
+# each keep them from oversubscribing it.
+torch.set_num_threads(2)
 
 CPU = torch.device("cpu")
 
@@ -52,3 +63,130 @@ def test_fmm_breakdown_on_the_cpu():
                                 "fmm_eval(P2M..P2P)"}
     assert all(v >= 0 for v in timer.times.values())
     assert "fmm_eval" in timer.report()
+
+
+# --- spans and counters inside the program ----------------------------------
+
+
+@pytest.fixture
+def spans():
+    """The registry empty and the spans off before and after the test, so
+    that no test leaks spans into another."""
+    profiling.reset_spans()
+    yield profiling
+    profiling.reset_spans()
+
+
+def _clustered(n, frac, dim=3, seed=0):
+    """``frac`` of the bodies in a 1e-3-wide ball at 0.5, the rest in
+    [0, 1]^D, unit masses (tests/test_torch_bvh.py's escalating input)."""
+    rng = np.random.default_rng(seed)
+    nc = int(n * frac)
+    pos = np.concatenate([0.5 + 1e-3 * rng.uniform(0, 1, (nc, dim)),
+                          rng.uniform(0, 1, (n - nc, dim))])
+    return torch.from_numpy(pos), torch.ones(n, dtype=torch.float64)
+
+
+ESCALATING = dict(theta=0.5, group_size=32, frontier_width=16, near_cap=16,
+                  max_escalations=8)
+UNIT = GravityConfig(G=1.0, softening=1e-4)
+
+
+def _trace_names(path):
+    events = json.loads(path.read_text())["traceEvents"]
+    return {e.get("name") for e in events}
+
+
+def _small_system(method, n=300):
+    s = random_system(n, 3, generator=torch.Generator().manual_seed(1),
+                      device=CPU, dtype=torch.float64)
+    return Simulation.create(s, GravityConfig(G=1.0, softening=0.1),
+                             method=method)
+
+
+def test_spans_off_by_default_leave_no_trace(spans, tmp_path, monkeypatch):
+    """Off, no call site makes a span (the span class is replaced by one
+    that raises), the registry stays empty and the profiler's trace holds
+    no ``nbody::`` name."""
+    assert not spans.spans_enabled()
+
+    def refuse(*args):
+        raise AssertionError(f"a span was made while spans are off: {args}")
+
+    monkeypatch.setattr(profiling, "_Span", refuse)
+    sim = _small_system("bvh")
+    with profiling.trace(str(tmp_path / "tr")):
+        sim.run(steps=1, dt=1e-3)
+    assert spans.span_totals() == {} and spans.counter_totals() == {}
+    names = _trace_names(tmp_path / "tr" / "trace.json")
+    assert names and not any(str(n).startswith("nbody::") for n in names)
+    assert profiling.spanned("sim.force", torch.ones) is torch.ones
+
+
+def test_bvh_spans_on_an_escalating_input(spans):
+    pos, mass = _clustered(2000, 0.9, seed=3)
+    spans.enable_spans()
+    tb.bvh_forces(pos, mass, UNIT, **ESCALATING)
+    totals, counters = spans.span_totals(), spans.counter_totals()
+    assert {"bvh.build", "bvh.frontier", "bvh.near",
+            "bvh.rewalk"} <= set(totals)
+    assert totals["bvh.build"][1] == 1
+    assert totals["bvh.rewalk"][1] >= 1
+    assert counters["bvh.escalations"] == totals["bvh.rewalk"][1]
+    # One frontier loop and one pass 2 a batch: the first walk's and each
+    # re-walk's.
+    assert totals["bvh.frontier"][1] == totals["bvh.near"][1] \
+        >= 1 + totals["bvh.rewalk"][1]
+    assert counters["bvh.walk_iters"] >= totals["bvh.frontier"][1]
+    # Each round re-walks the padded subset, a power of two of groups.
+    per_round = counters["bvh.rewalk_groups"] // counters["bvh.escalations"]
+    assert per_round & (per_round - 1) == 0
+    assert all(s >= 0 for s, _ in totals.values())
+
+
+def test_bvh_forces_bit_identical_with_spans_on(spans):
+    pos, mass = _clustered(2000, 0.9, seed=3)
+    off = tb.bvh_forces(pos, mass, UNIT, **ESCALATING)
+    spans.enable_spans()
+    on = tb.bvh_forces(pos, mass, UNIT, **ESCALATING)
+    assert torch.equal(on, off)
+    assert spans.span_totals()["bvh.rewalk"][1] >= 1
+
+
+def test_bvh_span_names_in_a_chrome_trace(spans, tmp_path):
+    spans.enable_spans()
+    sim = _small_system("bvh")
+    with profiling.trace(str(tmp_path / "tr")):
+        sim.run(steps=1, dt=1e-3)
+    names = _trace_names(tmp_path / "tr" / "trace.json")
+    assert {"nbody::sim.step", "nbody::sim.force", "nbody::bvh.build",
+            "nbody::bvh.frontier", "nbody::bvh.near"} <= names
+    # Opened under the profiler: in the totals, not in those outside it.
+    assert spans.span_totals()["sim.step"] == (
+        spans.span_totals()["sim.step"][0], 1)
+    assert spans.span_totals(outside_profiler=True) == {}
+    sim.run(steps=1, dt=1e-3)
+    assert spans.span_totals(outside_profiler=True)["sim.step"][1] == 1
+    assert spans.span_totals()["sim.step"][1] == 2
+
+
+def test_spans_nest_and_reset(spans):
+    spans.enable_spans()
+    with spans.span("outer"):
+        with spans.span("inner"):
+            time.sleep(0.005)
+        with spans.span("inner"):
+            pass
+    spans.count("things", 3)
+    spans.count("things")
+    totals = spans.span_totals()
+    assert totals["outer"][1] == 1 and totals["inner"][1] == 2
+    assert totals["outer"][0] >= totals["inner"][0] >= 0.005
+    assert spans.counter_totals() == {"things": 4}
+    spans.reset_spans()
+    assert not spans.spans_enabled()
+    assert spans.span_totals() == {} and spans.counter_totals() == {}
+    spans.count("things")
+    with spans.span("outer"):
+        pass
+    assert spans.span_totals() == {} and spans.counter_totals() == {}

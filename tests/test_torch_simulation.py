@@ -106,3 +106,39 @@ def test_checkpoint_torch_to_jax(tmp_path):
                                   np.asarray(jax.random.uniform(jkey, (4,))))
     _, _, none = jckpt.load_checkpoint(str(tmp_path), step=2)
     assert none is None
+
+
+@pytest.fixture
+def spans():
+    """The span registry empty and off before and after the test."""
+    from nbody_tpu_torch.utils import profiling
+    profiling.reset_spans()
+    yield profiling
+    profiling.reset_spans()
+
+
+def test_run_spans_a_step_and_its_force_calls(spans):
+    _, tsys = shared(n=64)
+    sim = Simulation.create(tsys, TGravity(**CFG), method="brute")
+    spans.enable_spans()
+    sim.run(steps=1, dt=1e-3)
+    totals = spans.span_totals()
+    assert set(totals) == {"sim.step", "sim.force"}
+    assert totals["sim.step"][1] == 1 and totals["sim.force"][1] == 2
+    assert totals["sim.step"][0] >= totals["sim.force"][0] > 0
+    spans.reset_spans()
+    Simulation.create(tsys, TGravity(**CFG), method="brute",
+                      integrator="euler").run(steps=3, dt=1e-3)
+    assert spans.span_totals() == {}
+
+
+@pytest.mark.parametrize("method", ["brute", "bvh"])
+def test_run_bit_identical_with_spans_on(spans, method):
+    _, tsys = shared(n=300, seed=2)
+    sim = Simulation.create(tsys, TGravity(**CFG), method=method)
+    off = sim.run(steps=2, dt=1e-3).system
+    spans.enable_spans()
+    on = sim.run(steps=2, dt=1e-3).system
+    assert torch.equal(on.positions, off.positions)
+    assert torch.equal(on.velocities, off.velocities)
+    assert spans.span_totals()["sim.force"][1] == 4
