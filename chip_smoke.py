@@ -892,7 +892,8 @@ def phase_bh(cb, gen, dev, default, smi) -> dict:
         rows = torch.randperm(n, generator=torch.Generator().manual_seed(
             BH_SEED + 1))[:BH_ROWS].to(dev)
         rp = gt.resolve_bh_params(n, dim, default.theta)
-        want = 2 * BH_STEPS * rp["num_segments"]
+        # Leapfrog's F(x0) and F(x1), the later steps' F(x0) carried.
+        want = (1 + BH_STEPS) * rp["num_segments"]
         sim = Simulation.create(bodies, default, method="barnes_hut")
         print(f"    Simulation('barnes_hut').run(steps={BH_STEPS}), N={n} "
               f"{dim}D, theta={default.theta} ({rp})")
@@ -2938,8 +2939,17 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"    ran in {time.perf_counter() - t0:.2f} s; K2 launches "
           f"{counts()['precise']}")
-    if counts()["precise"] != 2 * 3:
-        raise AssertionError(f"K2 launches {counts()['precise']} != 6")
+    # A fresh handle's first leapfrog step evaluates F(x0) and F(x1); each
+    # later step's F(x0) is the carried F(x1) of the step before.
+    if counts()["precise"] != 1 + 3:
+        raise AssertionError(f"K2 launches {counts()['precise']} != 4")
+    before = counts()["precise"]
+    fourth = sim.run(steps=1, dt=1e-3)
+    torch.cuda.synchronize()
+    if counts()["precise"] - before != 1 or fourth.step_count != 4:
+        raise AssertionError(f"a fourth step from the returned handle: K2 "
+                             f"launches {counts()['precise'] - before} != 1")
+    print("    a fourth step from the returned handle: 1 K2 launch")
     plain_fn = lambda p, m: brute_force_blocked(p, m, unit)  # noqa: E731
     ref = plum
     for _ in range(3):

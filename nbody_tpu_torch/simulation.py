@@ -18,8 +18,22 @@ CUDA tensors on the dense layout. ``"bvh"`` is the Hilbert radix BVH
 (``ops/bvh.bvh_forces``) with ``tree.max_bodies_per_leaf`` bodies a leaf,
 plain torch on the bodies' device.
 
+``run`` steps by the JAX package's two-evaluation ``leapfrog_step`` and
+gets the same results, but not the same number of force calls. The handle
+it returns carries its last force evaluation: the inputs (the very tensors
+and their in-place version counters), ``forces_fn`` and the forces. A force
+call on those same, unmodified tensors with the same ``forces_fn`` returns
+the carried forces without calling it. F(x0) of a step is the previous
+step's F(x1), made on the same tensor, so a leapfrog step costs one force
+call after a fresh handle's first step (two), across ``run`` calls too.
+``create`` and ``load`` start with no carry; a handle given another
+``system`` or ``forces_fn`` (``dataclasses.replace``), or whose positions or
+masses were edited in place, carries nothing that matches. Euler never
+evaluates at its new positions, so it keeps one call a step.
+
 With spans on (``utils.profiling.enable_spans``), ``run`` puts each step in
-a ``sim.step`` span and each of its force calls in a ``sim.force`` span.
+a ``sim.step`` span and each of its force calls in a ``sim.force`` span,
+and counts each carried evaluation it hands back under ``sim.carried``.
 """
 
 from __future__ import annotations
@@ -75,6 +89,24 @@ def available_methods():
 
 
 @dataclasses.dataclass(frozen=True)
+class _Carry:
+    """A force evaluation of ``forces_fn`` on ``positions`` and ``masses``
+    (these tensor objects, at the in-place ``versions`` they had when it was
+    made) and its output ``forces``."""
+
+    positions: torch.Tensor
+    masses: torch.Tensor
+    versions: tuple
+    forces_fn: Callable
+    forces: torch.Tensor
+
+    def holds(self, positions, masses, forces_fn) -> bool:
+        return (positions is self.positions and masses is self.masses
+                and forces_fn is self.forces_fn
+                and (positions._version, masses._version) == self.versions)
+
+
+@dataclasses.dataclass(frozen=True)
 class Simulation:
     """Immutable simulation handle; ``run`` returns an advanced copy."""
 
@@ -85,6 +117,9 @@ class Simulation:
     integrator: str
     step_count: int
     forces_fn: Callable = dataclasses.field(repr=False, compare=False)
+    # The last force evaluation ``run`` made (module docstring).
+    carried: Optional[_Carry] = dataclasses.field(default=None, repr=False,
+                                                  compare=False)
 
     @classmethod
     def create(cls, system: System,
@@ -105,16 +140,32 @@ class Simulation:
         return self.forces_fn(self.system.positions, self.system.masses)
 
     def run(self, steps: int, dt: float) -> "Simulation":
-        # Two force evaluations per leapfrog step, as nbody_tpu.simulation.
+        # The step makes the two force evaluations of nbody_tpu.simulation's
+        # leapfrog; one that the carry holds is handed back, not recomputed.
         step = euler_step if self.integrator == "euler" else leapfrog_step
         sys = self.system
         device = sys.positions.device
-        forces_fn = profiling.spanned("sim.force", self.forces_fn, device)
+        spanned = profiling.spanned("sim.force", self.forces_fn, device)
+        carry = self.carried
+
+        def forces_fn(positions, masses):
+            nonlocal carry
+            if carry is not None and carry.holds(positions, masses,
+                                                 self.forces_fn):
+                profiling.count("sim.carried")
+                return carry.forces
+            versions = (positions._version, masses._version)
+            forces = spanned(positions, masses)
+            carry = _Carry(positions, masses, versions, self.forces_fn,
+                           forces)
+            return forces
+
         for _ in range(steps):
             with profiling.span("sim.step", device):
                 sys = step(sys, forces_fn, dt)
         return dataclasses.replace(self, system=sys,
-                                   step_count=self.step_count + steps)
+                                   step_count=self.step_count + steps,
+                                   carried=carry)
 
     def energy(self) -> dict:
         ke = float(kinetic_energy(self.system.velocities, self.system.masses))

@@ -1,5 +1,8 @@
 """nbody_tpu_torch Simulation and npz checkpoints against nbody_tpu's."""
 
+import dataclasses
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +15,8 @@ from nbody_tpu.config import GravityConfig as JGravity
 from nbody_tpu.simulation import Simulation as JSimulation
 from nbody_tpu.state import System as JSystem
 from nbody_tpu_torch.config import GravityConfig as TGravity
+from nbody_tpu_torch.integrators import euler_step, leapfrog_step
+from nbody_tpu_torch.ops.brute_force import brute_force_blocked
 from nbody_tpu_torch.simulation import Simulation, available_methods
 from nbody_tpu_torch.state import system_from_numpy
 
@@ -141,4 +146,98 @@ def test_run_bit_identical_with_spans_on(spans, method):
     on = sim.run(steps=2, dt=1e-3).system
     assert torch.equal(on.positions, off.positions)
     assert torch.equal(on.velocities, off.velocities)
-    assert spans.span_totals()["sim.force"][1] == 4
+    # A fresh handle's two steps: F(x0), F(x1), then F(x2); F(x1) carried.
+    assert spans.span_totals()["sim.force"][1] == 3
+
+
+class Counted:
+    """``fn`` with a count of its calls."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, 0
+
+    def __call__(self, positions, masses):
+        self.calls += 1
+        return self.fn(positions, masses)
+
+
+K = 3
+
+
+@pytest.mark.parametrize("method,integrator,calls", [
+    ("brute", "leapfrog", 1 + K), ("bvh", "leapfrog", 1 + K),
+    # Euler never evaluates at its new positions: nothing to carry.
+    ("brute", "euler", K)])
+def test_chained_runs_carry_the_forces(method, integrator, calls):
+    _, tsys = shared(n=300, seed=5)
+    sim = Simulation.create(tsys, TGravity(**CFG), method=method,
+                            integrator=integrator)
+    plain = sim.forces_fn
+    step = leapfrog_step if integrator == "leapfrog" else euler_step
+    want = tsys
+    for _ in range(K):
+        want = step(want, plain, 1e-3)
+    whole = dataclasses.replace(sim, forces_fn=Counted(plain)).run(
+        steps=K, dt=1e-3)
+    chained = dataclasses.replace(sim, forces_fn=Counted(plain))
+    for _ in range(K):
+        chained = chained.run(steps=1, dt=1e-3)
+    for got in (whole, chained):
+        assert got.forces_fn.calls == calls and got.step_count == K
+        assert torch.equal(got.system.positions, want.positions)
+        assert torch.equal(got.system.velocities, want.velocities)
+
+
+@pytest.mark.parametrize("way", ["system", "forces_fn", "in_place", "load"])
+def test_carry_dropped(spans, way, tmp_path):
+    _, tsys = shared(n=64, seed=3)
+    sim = Simulation.create(tsys, TGravity(**CFG)).run(steps=2, dt=1e-3)
+    assert sim.carried.positions is sim.system.positions
+    if way == "system":
+        sim = dataclasses.replace(sim, system=shared(n=64, seed=4)[1])
+    elif way == "forces_fn":
+        sim = dataclasses.replace(sim, forces_fn=Counted(functools.partial(
+            brute_force_blocked, config=TGravity(G=1.0, softening=0.2))))
+    elif way == "in_place":
+        sim.system.positions.mul_(1.01)
+    else:
+        sim.save(str(tmp_path))
+        sim = Simulation.load(str(tmp_path), TGravity(**CFG), device="cpu")
+        assert sim.carried is None
+    spans.enable_spans()
+    got = sim.run(steps=1, dt=1e-3).system
+    assert spans.span_totals()["sim.force"][1] == 2
+    assert "sim.carried" not in spans.counter_totals()
+    if way == "forces_fn":
+        assert sim.forces_fn.calls == 2
+    want = leapfrog_step(sim.system, sim.forces_fn, 1e-3)
+    assert torch.equal(got.positions, want.positions)
+    assert torch.equal(got.velocities, want.velocities)
+
+
+def test_runs_from_one_handle_share_no_carry():
+    _, tsys = shared(n=64, seed=6)
+    sim = Simulation.create(tsys, TGravity(**CFG))
+    sim = dataclasses.replace(sim, forces_fn=Counted(sim.forces_fn)).run(
+        steps=1, dt=1e-3)
+    carried, sim.forces_fn.calls = sim.carried, 0
+    a, b = sim.run(steps=2, dt=1e-3), sim.run(steps=2, dt=1e-3)
+    # Each run starts from the handle's own carry: one call a step.
+    assert sim.forces_fn.calls == 4 and sim.carried is carried
+    assert a.carried is not b.carried
+    assert torch.equal(a.system.positions, b.system.positions)
+    assert torch.equal(a.system.velocities, b.system.velocities)
+
+
+def test_carried_counter_counts_the_hits(spans):
+    _, tsys = shared(n=64, seed=7)
+    sim = Simulation.create(tsys, TGravity(**CFG))
+    sim.run(steps=3, dt=1e-3)
+    assert spans.counter_totals() == {}
+    spans.enable_spans()
+    sim = sim.run(steps=3, dt=1e-3).run(steps=1, dt=1e-3)
+    assert spans.counter_totals() == {"sim.carried": 3}
+    assert spans.span_totals()["sim.force"][1] == 5
+    Simulation.create(tsys, TGravity(**CFG), integrator="euler").run(
+        steps=3, dt=1e-3)
+    assert spans.counter_totals() == {"sim.carried": 3}
