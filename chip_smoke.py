@@ -12,8 +12,9 @@ plain PyTorch version on the card, and drives the port's paths
 through the public entry points, each with the launch counts set to 0 just
 before it and read just after:
 
-* the main path, ``Simulation(method="brute")`` and the benchmark CLI at
-  N = 2^20 (K2, K1);
+* the main path, ``Simulation(method="brute")`` at N = 262,144 (K1) and
+  8192 (K2: below ``K1_MIN_N`` the route takes the one-sided kernel), and
+  the benchmark CLI at N = 2^20 (K1);
 * the segmented driver at N = 2,000,000 2D (K1 on the diagonal, K3 across);
 * fused small-N stepping at N = 1000 2D (K4, one cluster of 16 or 8 SMs);
 * the matmul-form tile with Morton sorting at N = 262,144 2D (K5);
@@ -97,6 +98,8 @@ import torch
 FORCE_TOL = 1e-4
 HEADLINE_N = 1 << 20
 SIM_N = 262_144
+# Below cb.K1_MIN_N: Simulation("brute") takes K2 there ([5]).
+SIM_SMALL_N = 8192
 TIMED_N = 262_144
 SEED = 0
 # The segmented driver at the size of the reference's 2e6 GPU row
@@ -2930,38 +2933,51 @@ def main() -> int:
                                              default, rows))
     del got, head
 
-    # 5-6. The main path, counted.
+    # 5-6. The main path, counted. Simulation("brute") takes K1 from
+    # cb.K1_MIN_N bodies up and K2 below (brute_force_routed): SIM_N runs on
+    # K1 and SIM_SMALL_N on K2, so both kernels stay gated on the path.
+    if not SIM_SMALL_N < cb.K1_MIN_N <= SIM_N:
+        raise AssertionError(f"K1_MIN_N {cb.K1_MIN_N} must lie in "
+                             f"({SIM_SMALL_N}, {SIM_N}]")
     reset_launches()
-    print(f"[5] Simulation(method='brute').run(steps=3, dt=1e-3), "
-          f"N={SIM_N} 3D Plummer, G=1, softening=0.1")
-    t0 = time.perf_counter()
-    sim = Simulation.create(plum, unit, method="brute").run(steps=3, dt=1e-3)
-    torch.cuda.synchronize()
-    print(f"    ran in {time.perf_counter() - t0:.2f} s; K2 launches "
-          f"{counts()['precise']}")
-    # A fresh handle's first leapfrog step evaluates F(x0) and F(x1); each
-    # later step's F(x0) is the carried F(x1) of the step before.
-    if counts()["precise"] != 1 + 3:
-        raise AssertionError(f"K2 launches {counts()['precise']} != 4")
-    before = counts()["precise"]
-    fourth = sim.run(steps=1, dt=1e-3)
-    torch.cuda.synchronize()
-    if counts()["precise"] - before != 1 or fourth.step_count != 4:
-        raise AssertionError(f"a fourth step from the returned handle: K2 "
-                             f"launches {counts()['precise'] - before} != 1")
-    print("    a fourth step from the returned handle: 1 K2 launch")
-    plain_fn = lambda p, m: brute_force_blocked(p, m, unit)  # noqa: E731
-    ref = plum
-    for _ in range(3):
-        ref = leapfrog_step(ref, plain_fn, 1e-3)
-    # Both runs are fp32 and differ only in summation order: accelerations
-    # agree within FORCE_TOL (scale-normalized), and from a cold start the
-    # velocities are sums of them, so they are held to the same bound.
-    # Positions move by ~1e-6 of their size in 3 steps and must agree to
-    # 1e-5 of the largest coordinate.
-    check_states("3 steps vs plain blocked path on the card",
-                 (sim.system.positions, sim.system.velocities),
-                 (ref.positions, ref.velocities))
+    small = plummer_system(SIM_SMALL_N, 3, generator=gen, device=dev)
+    for bodies, kernel, other in ((small, "precise", "symmetric"),
+                                  (plum, "symmetric", "precise")):
+        n = bodies.positions.shape[0]
+        name = {"precise": "K2", "symmetric": "K1"}[kernel]
+        print(f"[5] Simulation(method='brute').run(steps=3, dt=1e-3), "
+              f"N={n} 3D Plummer, G=1, softening=0.1: {name}")
+        before = dict(counts())
+        t0 = time.perf_counter()
+        sim = Simulation.create(bodies, unit, method="brute").run(steps=3,
+                                                                  dt=1e-3)
+        torch.cuda.synchronize()
+        print(f"    ran in {time.perf_counter() - t0:.2f} s")
+        # A fresh handle's first leapfrog step evaluates F(x0) and F(x1);
+        # each later step's F(x0) is the carried F(x1) of the step before.
+        expect_launches(f"N={n} 3 steps",
+                        {k: counts()[k] - before[k] for k in (kernel, other)},
+                        {kernel: 1 + 3, other: 0})
+        before = dict(counts())
+        fourth = sim.run(steps=1, dt=1e-3)
+        torch.cuda.synchronize()
+        expect_launches(f"N={n} a fourth step from the returned handle",
+                        {k: counts()[k] - before[k] for k in (kernel, other)},
+                        {kernel: 1, other: 0})
+        if fourth.step_count != 4:
+            raise AssertionError(f"step count {fourth.step_count} != 4")
+        plain_fn = lambda p, m: brute_force_blocked(p, m, unit)  # noqa: E731
+        ref = bodies
+        for _ in range(3):
+            ref = leapfrog_step(ref, plain_fn, 1e-3)
+        # Both runs are fp32 and differ only in summation order:
+        # accelerations agree within FORCE_TOL (scale-normalized), and from a
+        # cold start the velocities are sums of them, so they are held to
+        # the same bound. Positions move by ~1e-6 of their size in 3 steps
+        # and must agree to 1e-5 of the largest coordinate.
+        check_states(f"N={n} 3 steps vs plain blocked path on the card",
+                     (sim.system.positions, sim.system.velocities),
+                     (ref.positions, ref.velocities))
     with tempfile.TemporaryDirectory() as tmp:
         sim.save(tmp)
         back = Simulation.load(tmp, unit, device=dev)

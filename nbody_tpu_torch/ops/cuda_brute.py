@@ -29,6 +29,20 @@ plain PyTorch version beside it:
 * K5 ``"mxu"`` (``_kernel_mxu``): the one-sided tile in block-centred
   matmul form, ``csrc/mxu.cu``; plain version :func:`mxu_accel_plain`.
 
+The exact sum as ``Simulation("brute")`` runs it on the card is
+:func:`brute_force_routed`: K1 from :data:`K1_MIN_N` bodies up, K2 below.
+The threshold is measured, K1 against K2 through :func:`brute_force_cuda`
+on an H100 at N = 1024 to 262,144 in 2D and 3D (CUDA events, median of 3;
+``PERF.md`` § 6): K1 is faster in both from 16,384 up (0.32 against 0.51
+ms in 2D there, 18.9 against 29.1 at 262,144), K2 at 4096 and 8192, where
+K1's one CTA a block leaves most SMs idle and a call is mostly the host's
+time around its launches. The JAX package
+takes its one-sided kernel at every N, a choice made for the TPU. K1 sums
+in fp64 by atomics, so its last bits can change from run to run: the
+route's results agree with the JAX package's within tolerance, not bit for
+bit. ``mode="precise"`` and ``"symmetric"`` stay as they are; K2 is also
+the ring's self-block engine (:func:`local_accel_cuda`).
+
 Dispatch: a wrapper runs the plain version only for tensors on the CPU. For
 a CUDA tensor it launches the kernel or raises; nothing falls back. Each
 launch adds one to ``cuda_build.LAUNCHES[<kernel>]``.
@@ -47,7 +61,7 @@ import math
 import torch
 
 from ..config import DEFAULT_GRAVITY, GravityConfig
-from ..utils import cuda_build
+from ..utils import cuda_build, profiling
 from ..utils.cuda_build import LAUNCHES
 from .brute_force import _PAD_POS, _accel_rows, _accel_rows_sym, \
     _diffs_d2, _guarded_u3
@@ -359,6 +373,33 @@ def brute_force_cuda(positions, masses,
         acc = pairwise_accel_cuda(positions, positions, masses,
                                   config.softening, guard)
     return (config.G * masses)[:, None] * acc
+
+
+#: Smallest N at which :func:`brute_force_routed` takes K1, in 2D and 3D
+#: (the measurement is in the module docstring). Below it K1's CTAs, one a
+#: 1024-body block on the diagonal and one a block pair off it, are too few
+#: to fill the card's SMs.
+K1_MIN_N = 16_384
+
+
+def brute_force_routed(positions, masses,
+                       config: GravityConfig = DEFAULT_GRAVITY):
+    """The exact sum [N, D] (fp32) by the faster kernel for N:
+    :func:`brute_force_cuda` with ``mode="symmetric"`` (K1, each unordered
+    pair evaluated once) from :data:`K1_MIN_N` bodies up, ``"precise"`` (K2,
+    every ordered pair) below. ``Simulation("brute")``'s engine on the card.
+
+    The same pair law, softening, guard policy and fp32 pair terms either
+    way; K1 accumulates in fp64 by atomics, so its last bits can change
+    from run to run, and the results agree with the JAX package's one-sided
+    sum within tolerance, not bit for bit. With spans on, each call counts
+    under ``brute.k1`` or ``brute.k2``.
+    """
+    if positions.shape[0] >= K1_MIN_N:
+        profiling.count("brute.k1")
+        return brute_force_cuda(positions, masses, config, mode="symmetric")
+    profiling.count("brute.k2")
+    return brute_force_cuda(positions, masses, config, mode="precise")
 
 
 # --- K3: Newton-3 rectangle over two disjoint blocks -------------------------

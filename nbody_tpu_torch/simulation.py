@@ -8,9 +8,13 @@ Port of ``nbody_tpu.simulation``:
     sim.save("ckpts")                                   # npz
     sim2 = Simulation.load("ckpts", config, device="cuda")
 
-``"brute"`` resolves by the system's device: CUDA tensors go to the K2
-kernel (``brute_force_cuda``, mode ``"precise"``), CPU tensors to the plain
-``brute_force_blocked``, as the JAX package does off-TPU. ``"barnes_hut"``
+``"brute"`` resolves by the system's device: CUDA tensors go to
+``cuda_brute.brute_force_routed``, the Newton-3 kernel K1 from
+``K1_MIN_N`` bodies up and the one-sided K2 below, CPU tensors to the plain
+``brute_force_blocked``, as the JAX package does off-TPU. The JAX package
+takes its one-sided kernel at every N on the TPU; on the card the results
+agree with it within tolerance, not bit for bit (K1 sums in fp64, by
+atomics whose order can change from run to run). ``"barnes_hut"``
 is the grid tree (``ops/grid_tree.barnes_hut_grid``) at the configuration's
 θ, ``"fmm"`` the black-box FMM (``ops/fmm.fmm_forces``) at
 ``min(tree.order, 8)``; the near field of both runs the K6 kernel for fp32
@@ -52,9 +56,8 @@ from .utils import profiling
 
 def _brute(gravity: GravityConfig, tree: TreeConfig, device: torch.device):
     if device.type == "cuda":
-        from .ops.cuda_brute import brute_force_cuda
-        return functools.partial(brute_force_cuda, config=gravity,
-                                 mode="precise")
+        from .ops.cuda_brute import brute_force_routed
+        return functools.partial(brute_force_routed, config=gravity)
     if device.type == "cpu":
         from .ops.brute_force import brute_force_blocked
         return functools.partial(brute_force_blocked, config=gravity)

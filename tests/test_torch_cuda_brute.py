@@ -152,3 +152,44 @@ def test_bad_and_unported_modes():
 def test_tri_pair_enumerates_each_block_pair_once(nb):
     pairs = [cb._tri_pair(k) for k in range(nb * (nb + 1) // 2)]
     assert sorted(pairs) == [(a, b) for a in range(nb) for b in range(a + 1)]
+
+
+@pytest.fixture
+def spans():
+    """The span registry empty and off before and after the test."""
+    from nbody_tpu_torch.utils import profiling
+    profiling.reset_spans()
+    yield profiling
+    profiling.reset_spans()
+
+
+@pytest.mark.parametrize("spans_on", [True, False])
+@pytest.mark.parametrize("n,dim,mode", [(200, 2, "precise"),
+                                        (256, 2, "symmetric"),
+                                        (300, 2, "symmetric"),
+                                        (200, 3, "precise"),
+                                        (300, 3, "symmetric")])
+def test_routed_entry_takes_k2_below_and_k1_from_threshold(
+        monkeypatch, spans, n, dim, mode, spans_on):
+    """K2 below K1_MIN_N, K1 from it up; either route the JAX package's
+    brute sum to 1e-5 of the RMS force; one counter a call with spans on,
+    none with them off."""
+    monkeypatch.setattr(cb, "K1_MIN_N", 256)
+    modes = []
+    inner = cb.brute_force_cuda
+
+    def spy(positions, masses, config, mode):
+        modes.append(mode)
+        return inner(positions, masses, config, mode=mode)
+
+    monkeypatch.setattr(cb, "brute_force_cuda", spy)
+    if spans_on:
+        spans.enable_spans()
+    pos, mass = _bodies(n, dim, seed=n + dim)
+    have = cb.brute_force_routed(torch.from_numpy(pos),
+                                 torch.from_numpy(mass), TGravity())
+    assert modes == [mode]
+    want = brute_force_direct(jnp.asarray(pos), jnp.asarray(mass), JGravity())
+    _check(have, np.asarray(want), _oracle64(pos, mass, {}))
+    kernel = {"precise": "brute.k2", "symmetric": "brute.k1"}[mode]
+    assert spans.counter_totals() == ({kernel: 1} if spans_on else {})

@@ -17,7 +17,8 @@ from nbody_tpu.state import System as JSystem
 from nbody_tpu_torch.config import GravityConfig as TGravity
 from nbody_tpu_torch.integrators import euler_step, leapfrog_step
 from nbody_tpu_torch.ops.brute_force import brute_force_blocked
-from nbody_tpu_torch.simulation import Simulation, available_methods
+from nbody_tpu_torch.ops.cuda_brute import brute_force_routed
+from nbody_tpu_torch.simulation import Simulation, _brute, available_methods
 from nbody_tpu_torch.state import system_from_numpy
 
 
@@ -69,6 +70,16 @@ def test_methods_unknown_and_unported():
     ran = sim.run(steps=1, dt=1e-3)
     assert ran.step_count == 1 and bool(
         torch.isfinite(ran.system.positions).all())
+
+
+@pytest.mark.parametrize("device,fn", [("cuda", brute_force_routed),
+                                       ("cpu", brute_force_blocked)])
+def test_brute_engine_by_device(device, fn):
+    """"brute" builds the routed entry (K1 or K2 by N) for the card and the
+    plain blocked sum for the CPU; building needs no card."""
+    cfg = TGravity(**CFG)
+    forces_fn = _brute(cfg, None, torch.device(device))
+    assert forces_fn.func is fn and forces_fn.keywords == {"config": cfg}
 
 
 def test_save_load_round_trip(tmp_path):
