@@ -15,7 +15,8 @@ before it and read just after:
 * the main path, ``Simulation(method="brute")`` at N = 262,144 (K1) and
   8192 (K2: below ``K1_MIN_N`` the route takes the one-sided kernel), and
   the benchmark CLI at N = 2^20 (K1);
-* the segmented driver at N = 2,000,000 2D (K1 on the diagonal, K3 across);
+* K3's cross tiles against its plain version, one launch a tile at any
+  size, the ring cell's 1.25e6 x 1.25e6 2D tile among them;
 * fused small-N stepping at N = 1000 2D (K4, one cluster of 16 or 8 SMs);
 * the matmul-form tile with Morton sorting at N = 262,144 2D (K5);
 * the Barnes-Hut grid tier, ``Simulation(method="barnes_hut")`` and the CLI
@@ -38,8 +39,8 @@ before it and read just after:
   the CPU's; its phase times;
 * the multi-device tiers (``nbody_tpu_torch.parallel``) on a mesh of 4
   virtual shards of the card: the Newton-3 ring at N = 2^20 2D (K2 on the
-  self blocks, K3 on the forward tiles), odd and even P, the one-sided and
-  the segmented ring, the sharded Barnes-Hut (1e6 2D) and FMM (1e5 3D)
+  self blocks, K3 on the forward tiles), odd and even P, the one-sided
+  ring, the sharded Barnes-Hut (1e6 2D) and FMM (1e5 3D)
   with K6 once a shard, the sharded BVH (1e6 2D), each against its
   single-device run and the f64 oracle; the body-sharded LET tiers
   (Barnes-Hut 1e6 2D, FMM 1e5 3D, BVH 1e6 2D; plain torch, no kernel
@@ -60,10 +61,10 @@ before it and read just after:
   its budget, 2D and 3D), the multichip tool on virtual shards (every
   tier within its tolerance, K2 and K3 on the rings, the collective
   census);
-* the repo's probes (the 13 counterparts of ``tools/`` in
+* the repo's probes (the 12 counterparts of ``tools/`` in
   ``nbody_tpu_torch.tools``: phase splits, clustered stress, big-N
   Barnes-Hut, near-field and tuning sweeps, BVH benches, the small-N floor,
-  the segmented check, the brute-force variants, the narrow products), each
+  the brute-force variants, the narrow products), each
   through its ``main`` with its record held to its gate and no row failed
   (K1-K6 and P's product launched on their probes).
 
@@ -102,10 +103,6 @@ SIM_N = 262_144
 SIM_SMALL_N = 8192
 TIMED_N = 262_144
 SEED = 0
-# The segmented driver at the size of the reference's 2e6 GPU row
-# (bench/registry.py:106-108), and a ragged odd-segment 3D case.
-SEG_N = 2_000_000
-SEG_N3 = 300_001
 # K1 and K3 against their plain versions at the edges of the engine's
 # 1024-body block: N below it, N = block - 1 and block + 1, and ragged N
 # over several blocks, in 2D and 3D, at softening 0 (with coincident
@@ -117,6 +114,9 @@ SYM_TILE_PAIRS = [(100, 200, 2, False), (130, 170, 3, False),
                   (4099, 5000, 3, True), (3000, 1_000_003, 2, False)] + [
     (t, s, dim, coincident) for t, s in K3_EDGE for dim in (2, 3)
     for coincident in (False, True)]
+# K3 at the tile the four-card ring cell gives it (uniform2d_5m: a shard of
+# 5e6 / 4 bodies a side, 2D), checked on sampled rows of each side.
+RING_TILE = 1_250_000
 # K4: the reference's small-N row (1000,BruteForce_CUDA,2, BASELINE.md:20)
 # and the largest N the kernel takes; per-step time by differencing runs of
 # K_LO and K_HI steps (tools/smalln_floor.py:106-116). FUSED_SINGLE: steps
@@ -244,9 +244,8 @@ BVH_PARLAY_S = {(100_000, 2): 0.256, (100_000, 3): 1.659,
 # ring at HEADLINE_N 2D against the f64 sum and K1 (K2 one launch per self
 # block, K3 one per forward tile, the even-P half step only on shards
 # b < P/2: the port skips the masked tiles); odd and even P on RING_SMALL
-# (N, P), 3D, a ragged N among them; the one-sided ring at TIMED_N 3D; the
-# segmented ring at TIMED_N 2D with a pair budget that cuts each shard into
-# 2 row chunks; the sharded tiers against their unsharded runs and the f64
+# (N, P), 3D, a ragged N among them; the one-sided ring at TIMED_N 3D;
+# the sharded tiers against their unsharded runs and the f64
 # oracle at [12] / [14] / [16]'s gates; the dry run with the JAX package's
 # gates; a mesh of real cards (at most MULTI_REAL_MAX) where there are
 # several.
@@ -331,7 +330,6 @@ PROBES = [
      ("near_field",)),
     ("smalln_floor", ["--n", "1000", "--dim", "2"],
      ("symmetric", "fused_steps")),
-    ("segmented_probe", [], ("symmetric", "sym_tile")),
     ("brute_variants", ["--n", "1048576", "--dim", "2"],
      ("precise", "symmetric", "mxu")),
     ("mxu_narrow_bench", [], ("matmul_probe",)),
@@ -460,10 +458,11 @@ def sample_rows(n, gen, dev):
 
 
 def phase_sym_tile(cb, gen, dev, default) -> dict:
-    """[8] K3 against its plain version; the segmented driver, counted."""
+    """[8] K3 against its plain version, one launch a tile, counted."""
     from nbody_tpu_torch.state import random_system
     print("[8] K3 sym tile vs f64 plain version (both outputs)")
     errs = []
+    reset_launches()
     for t, s, dim, coincident in SYM_TILE_PAIRS:
         if coincident:
             p, m = coincident_set(t + s, gen, dev)
@@ -484,43 +483,23 @@ def phase_sym_tile(cb, gen, dev, default) -> dict:
         for side, g, w in zip(("acc_t", "part_s"), got, want):
             errs.append(check_close(f"{label} {side}", g, w,
                                     tol=max(FORCE_TOL, fp32_floor(w))))
-    bodies = random_system(300, 3, generator=gen, device=dev)
-    p, m = bodies.positions, bodies.masses
-    got = cb.sym_tile_cuda(p[:100], m[:100], p[100:], m[100:],
-                           default.softening, chunk=64)
-    want = cb.sym_tile_plain(p[:100].double(), m[:100].double(),
-                             p[100:].double(), m[100:].double(),
-                             default.softening)
-    for side, g, w in zip(("acc_t", "part_s"), got, want):
-        check_close(f"100x200 3D chunk=64 (2 x 4 launches) {side}", g, w)
-
-    print(f"    brute_force_cuda_segmented, N={SEG_N} 2D, default segments")
-    big = random_system(SEG_N, 2, generator=gen, device=dev)
-    reset_launches()
-    got = cb.brute_force_cuda_segmented(big.positions, big.masses, default)
-    torch.cuda.synchronize()
+    bodies = random_system(2 * RING_TILE, 2, generator=gen, device=dev)
+    tp, sp = bodies.positions[:RING_TILE], bodies.positions[RING_TILE:]
+    tm, sm = bodies.masses[:RING_TILE], bodies.masses[RING_TILE:]
+    got = cb.sym_tile_cuda(tp, tm, sp, sm, default.softening)
+    tp, tm, sp, sm = (x.double() for x in (tp, tm, sp, sm))
+    for side, g, (a, am, b, bm) in zip(("acc_t", "part_s"), got,
+                                       ((tp, tm, sp, sm), (sp, sm, tp, tm))):
+        rows = sample_rows(RING_TILE, gen, dev)
+        w = cb.sym_tile_plain(a[rows], am[rows], b, bm, default.softening)[0]
+        errs.append(check_close(
+            f"{RING_TILE}x{RING_TILE} 2D {side}, {SAMPLED_ROWS} sampled rows "
+            "vs f64 sum", g[rows], w, tol=max(FORCE_TOL, fp32_floor(w))))
+    del got, bodies, tp, tm, sp, sm
     launches = dict(counts())
-    expect_launches(f"segmented N={SEG_N} 2D", launches,
-                    {"symmetric": 2, "sym_tile": 1})
-    rows = sample_rows(SEG_N, gen, dev)
-    seg_err = check_close(
-        f"segmented N={SEG_N} 2D, {SAMPLED_ROWS} sampled rows vs one-sided "
-        "f64 sum", got[rows], oracle64(cb, big.positions, big.masses,
-                                       default, rows))
-    del got, big
-    print(f"    brute_force_cuda_segmented, N={SEG_N3} 3D, num_segments=3")
-    b3 = random_system(SEG_N3, 3, generator=gen, device=dev)
-    reset_launches()
-    got = cb.brute_force_cuda_segmented(b3.positions, b3.masses, default,
-                                        num_segments=3)
-    expect_launches(f"segmented N={SEG_N3} 3D", counts(),
-                    {"symmetric": 3, "sym_tile": 3})
-    rows = sample_rows(SEG_N3, gen, dev)
-    check_close(f"segmented N={SEG_N3} 3D, {SAMPLED_ROWS} sampled rows",
-                got[rows], oracle64(cb, b3.positions, b3.masses, default,
-                                    rows))
-    return {"launches": launches["sym_tile"], "max_abs_err": max(errs),
-            "segmented_max_abs_err": seg_err}
+    expect_launches(f"{len(SYM_TILE_PAIRS) + 1} tiles", launches,
+                    {"sym_tile": len(SYM_TILE_PAIRS) + 1})
+    return {"launches": launches["sym_tile"], "max_abs_err": max(errs)}
 
 
 def check_states(label, have, want, v_tol=FORCE_TOL, x_tol=1e-5) -> float:
@@ -1794,14 +1773,11 @@ def phase_times(cb, gen, dev, default, smi) -> dict:
           f"{t['K3_3d']:.3f} ms ({TIMED_N} x {TIMED_N} cross tile)")
     del small, pair
 
-    seg = random_system(SEG_N, 2, generator=gen, device=dev)
-    t["segmented_2e6"] = time_ms(lambda: cb.brute_force_cuda_segmented(
-        seg.positions, seg.masses, default))
+    big2e6 = random_system(2_000_000, 2, generator=gen, device=dev)
     t["K1_2e6"] = time_ms(lambda: cb.brute_force_cuda(
-        seg.positions, seg.masses, default, mode="symmetric"))
-    print(f"    N={SEG_N} 2D fp32: segmented (2 segments: 2 K1 + 1 K3) "
-          f"{t['segmented_2e6']:.3f} ms, one K1 launch {t['K1_2e6']:.3f} ms")
-    del seg
+        big2e6.positions, big2e6.masses, default, mode="symmetric"))
+    print(f"    N=2000000 2D fp32: one K1 launch {t['K1_2e6']:.3f} ms")
+    del big2e6
 
     unit = GravityConfig(G=1.0, softening=0.1)
     for n, dim in ((SMALL_N, 2), (FUSED_N, 3)):
@@ -1894,30 +1870,8 @@ def ring_checks(ring, cb, mesh, gen, dev, default, smi) -> dict:
     out["one_sided_ms_3d"] = time_ms(lambda: ring.ring_brute_force(
         b.positions, b.masses, default, mesh=mesh, symmetric=False))
 
-    b = random_system(TIMED_N, 2, generator=gen, device=dev)
-    shard = TIMED_N // p
-    budget = shard * (shard // 2)
-    plan = ring.segment_plan(TIMED_N, p, 2, budget)
-    if plan != (shard // 2, 2):
-        raise AssertionError(f"segment plan {plan} != ({shard // 2}, 2)")
-    reset_launches()
-    seg = ring.ring_all_pairs_segmented(b.positions, b.masses, default,
-                                        mesh=mesh, pair_budget=budget)
-    torch.cuda.synchronize()
-    expect_launches(f"segmented ring N={TIMED_N} 2D, 2 chunks a shard",
-                    counts(), {"precise": 2 * p,
-                               "sym_tile": 2 * ring_k3_launches(p)})
-    whole = ring.ring_brute_force(b.positions, b.masses, default,
-                                  mesh=mesh).double()
-    check_close(f"segmented ring N={TIMED_N} 2D vs the unsegmented ring",
-                seg, whole, tol=max(FORCE_TOL, fp32_floor(whole)))
-    out["segmented_ms"] = time_ms(lambda: ring.ring_all_pairs_segmented(
-        b.positions, b.masses, default, mesh=mesh, pair_budget=budget))
-    out["unsegmented_ms"] = time_ms(lambda: ring.ring_brute_force(
-        b.positions, b.masses, default, mesh=mesh))
     print(f"    one-sided ring N={TIMED_N} 3D {out['one_sided_ms_3d']:.3f} "
-          f"ms; segmented N={TIMED_N} 2D {out['segmented_ms']:.3f} ms vs "
-          f"unsegmented {out['unsegmented_ms']:.3f} ms, {smi}")
+          f"ms, {smi}")
     return out
 
 
@@ -2582,9 +2536,6 @@ def check_probe(name, rec) -> None:
             need(rec[key]["per_step_s"] > 0, f"{key} {rec[key]}")
         rel = rec["brute_force_cuda_symmetric"]["graph_vs_eager_rel"]
         need(rel <= STEP_K1_REL, f"K1 graph vs eager {rel}")
-    elif name == "segmented_probe":
-        need(max(rec["err_seg3_vs_symmetric"], rec["err_seg5_vs_seg3"])
-             < 3e-4, f"errors {rec}")
 
 
 def phase_probes(smi) -> dict:
@@ -2699,13 +2650,12 @@ def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, fmm, pr,
          "entry_launches": entry_launches.get("precise", 0),
          "probe_launches": probe_launches["precise"],
          **bounds["K2"], "library_ms": None},
-        {"name": "K3 sym tile (Newton-3 rectangle, segmented driver)",
+        {"name": "K3 sym tile (Newton-3 rectangle, the ring's tiles)",
          "route": "cuda", "source": "nbody_tpu_torch/csrc/sym_tile.cu",
          "replaces": "nbody_tpu/ops/pallas_brute.py:497",
          "launches": k3["launches"], "max_abs_err": k3["max_abs_err"],
          "ms": t["K3"], "plain_ms": t["K3_plain"],
          "timed_at": f"{TIMED_N} x {TIMED_N} 2D fp32 cross tile",
-         "segmented_ms_n2e6_2d": t["segmented_2e6"],
          "ring_launches": ring_launches["sym_tile"],
          "ms_n262144_3d": t["K3_3d"],
          "bound_ms_n262144_3d": bounds["K3_3d"]["bound_ms"],
@@ -2814,8 +2764,6 @@ def multi_line(multi, smi) -> dict:
             "ring_ms_n1048576_2d": ring["ring_ms"],
             "k1_ms_n1048576_2d": ring["k1_ms"],
             "one_sided_ring_ms_n262144_3d": ring["one_sided_ms_3d"],
-            "segmented_ring_ms_n262144_2d": ring["segmented_ms"],
-            "unsegmented_ring_ms_n262144_2d": ring["unsegmented_ms"],
             "tiers": multi["times"], "let": multi["let"],
             "peak_gib_real_cards": multi.get("real", {}).get("peak_gib")}
 

@@ -1,8 +1,8 @@
 // K3: Newton-3 rectangular tile over two DISJOINT body blocks.
 //
 // Replaces ops/pallas_brute.py:_kernel_sym_tile (built by pallas_sym_tile),
-// the engine of the segmented driver's cross pairs and of the symmetric
-// ring. From one sweep of every (target, source) pair it returns, in
+// the engine of the symmetric ring's cross-shard tiles. From one sweep of
+// every (target, source) pair it returns, in
 // acceleration units and not scaled by G,
 //     acc_t[t]  =  sum_s m_s * u3(t, s) * Delta,     Delta = x_s - x_t,
 //     part_s[s] = -sum_t m_t * u3(t, s) * Delta,
@@ -14,7 +14,9 @@
 // concurrently and in no order, so both sides go into global fp64
 // accumulators by atomicAdd: acc_t [T, 4] and acc_s [S, 4], zeroed by the
 // wrapper, which converts them to fp32. The summation order changes from
-// run to run; compare by tolerance.
+// run to run; compare by tolerance. The TPU also cut a large rectangle into
+// chunks for its scoped VMEM; here one launch takes any t x s, its tile
+// count in 64 bits, walked grid-stride by the engine.
 //
 // Design: the Newton-3 tile engine (newton3_tile.cuh), shared with K1's
 // off-diagonal block pairs, walked over the rectangle of kN3Block x kN3Block

@@ -10,8 +10,8 @@ plain PyTorch version beside it:
   :func:`symmetric_forces_plain`, which enumerates the same block pairs.
 * K3 (``_kernel_sym_tile``): the Newton-3 rectangle over two disjoint
   blocks, :func:`sym_tile_cuda`, ``csrc/sym_tile.cu``; plain version
-  :func:`sym_tile_plain`. It carries the cross pairs of
-  :func:`brute_force_cuda_segmented`.
+  :func:`sym_tile_plain`. It carries the Newton-3 ring's cross-shard
+  tiles (``parallel/ring.py``), one launch a tile.
 
   K1's off-diagonal block pairs and K3's tiles run on one Newton-3 tile
   engine, ``csrc/newton3_tile.cuh``: a lane owns 8 targets, a warp passes
@@ -341,9 +341,8 @@ def brute_force_cuda(positions, masses,
     scatters them back, for every mode.
 
     K1 takes any N that fits in memory: the card has no dispatch watchdog,
-    so ``BruteForce_CUDA`` makes one K1 launch at any N.
-    :func:`brute_force_cuda_segmented` is the API counterpart of the JAX
-    package's segmented driver.
+    so ``"symmetric"`` makes one K1 launch at any N, where the JAX package
+    splits large N into segments (``brute_force_pallas_segmented``).
     """
     if mode not in ("precise", "mxu", "symmetric"):
         raise ValueError(
@@ -404,36 +403,13 @@ def brute_force_routed(positions, masses,
 
 # --- K3: Newton-3 rectangle over two disjoint blocks -------------------------
 
-#: Row cap per cross-tile call (targets and sources), the JAX package's
-#: ``_SYM_TILE_CHUNK``. It exists for a TPU compile limit (scoped VMEM); K3
-#: needs no split, but the chunked call keeps the JAX semantics.
-SYM_TILE_CHUNK = 524_288
-
-
-def _chunked(tile_fn, tpos, tmass, spos, smass, chunk):
-    """``pallas_sym_tile``'s split (``pallas_brute.py:620-638``): above
-    ``chunk`` rows on either side, one ``tile_fn`` call per chunk × chunk
-    sub-rectangle, target sides summed over source chunks and source sides
-    over target chunks."""
-    t, s = tpos.shape[0], spos.shape[0]
-    if t <= chunk and s <= chunk:
-        return tile_fn(tpos, tmass, spos, smass)
-    n_s = -(-s // chunk)
-    acc_rows, parts = [], [None] * n_s
-    for t0 in range(0, t, chunk):
-        tp, tm = tpos[t0:t0 + chunk], tmass[t0:t0 + chunk]
-        acc = None
-        for k in range(n_s):
-            s0 = k * chunk
-            a, p = tile_fn(tp, tm, spos[s0:s0 + chunk], smass[s0:s0 + chunk])
-            acc = a if acc is None else acc + a
-            parts[k] = p if parts[k] is None else parts[k] + p
-        acc_rows.append(acc)
-    return torch.cat(acc_rows), torch.cat(parts)
-
-
-def _sym_tile_rows(tpos, tmass, spos, smass, softening, guard):
-    """``_accel_rows_sym`` in target-row blocks of bounded size."""
+def sym_tile_plain(tpos, tmass, spos, smass, softening=0.0, guard=None):
+    """Plain version of K3: (acc_t [T, D], part_s [S, D]) in acceleration
+    units, with the kernel's guard policy: ``_accel_rows_sym`` over the
+    whole rectangle, in target-row blocks of bounded size. Runs in the
+    inputs' dtype."""
+    if guard is None:
+        guard = float(softening) == 0.0
     t, s = tpos.shape[0], spos.shape[0]
     acc_t = tpos.new_zeros(tpos.shape)
     part_s = spos.new_zeros(spos.shape)
@@ -444,19 +420,6 @@ def _sym_tile_rows(tpos, tmass, spos, smass, softening, guard):
         acc_t[r:r + rows] = a
         part_s += p
     return acc_t, part_s
-
-
-def sym_tile_plain(tpos, tmass, spos, smass, softening=0.0, guard=None,
-                   chunk: int = SYM_TILE_CHUNK):
-    """Plain version of K3: (acc_t [T, D], part_s [S, D]) in acceleration
-    units, with the kernel's guard policy and the JAX chunking. Runs in the
-    inputs' dtype."""
-    if guard is None:
-        guard = float(softening) == 0.0
-    return _chunked(
-        lambda tp, tm, sp, sm: _sym_tile_rows(tp, tm, sp, sm, softening,
-                                              guard),
-        tpos, tmass, spos, smass, chunk)
 
 
 def _sym_tile_launch(tpos, tmass, spos, smass, softening, guard):
@@ -476,16 +439,17 @@ def _sym_tile_launch(tpos, tmass, spos, smass, softening, guard):
             acc_s[:, :dim].to(torch.float32))
 
 
-def sym_tile_cuda(tpos, tmass, spos, smass, softening=0.0, guard=None,
-                  chunk: int = SYM_TILE_CHUNK):
+def sym_tile_cuda(tpos, tmass, spos, smass, softening=0.0, guard=None):
     """Newton-3 rectangular tile for DISJOINT body blocks (fp32).
 
     Counterpart of ``pallas_sym_tile``: returns (acc_t [T, D], part_s
     [S, D]) in acceleration units, not G-scaled: acc_t = Σ_s m_s·u³·Δ and
     part_s = −Σ_t m_t·u³·Δ, so each unordered cross pair is swept once.
-    K3 on CUDA tensors (one launch per chunk × chunk sub-rectangle), the
-    plain version on CPU tensors. The guard defaults to on only at
-    softening == 0.
+    K3 on CUDA tensors, one launch at any T and S (the kernel counts its
+    tiles in 64 bits and walks them grid-stride; the JAX package splits
+    above 524,288 rows a side for a TPU compile limit the card does not
+    have), the plain version on CPU tensors. The guard defaults to on only
+    at softening == 0.
     """
     _check_shapes(tpos, tmass)
     _check_shapes(spos, smass)
@@ -497,68 +461,14 @@ def sym_tile_cuda(tpos, tmass, spos, smass, softening=0.0, guard=None,
     tpos, tmass, spos, smass = (x.to(torch.float32)
                                 for x in (tpos, tmass, spos, smass))
     if _device_kind(tpos, tmass, spos, smass) == "cpu":
-        return sym_tile_plain(tpos, tmass, spos, smass, softening, guard,
-                              chunk)
-    return _chunked(
-        lambda tp, tm, sp, sm: _sym_tile_launch(tp, tm, sp, sm, softening,
-                                                guard),
-        tpos, tmass, spos, smass, chunk)
+        return sym_tile_plain(tpos, tmass, spos, smass, softening, guard)
+    return _sym_tile_launch(tpos, tmass, spos, smass, softening, guard)
 
 
 def sym_accel_cuda(tpos, tmass, spos, smass, softening):
     """``SymAccelFn``-shaped adapter (the symmetric ring's engine).
     Counterpart of ``pallas_sym_accel``."""
     return sym_tile_cuda(tpos, tmass, spos, smass, softening=float(softening))
-
-
-# --- Segmented driver: K1 on the diagonal, K3 across --------------------------
-
-#: Default segment rows of the segmented driver (the JAX package's 2^20).
-SEGMENT_ROWS = 1 << 20
-
-
-def brute_force_cuda_segmented(positions, masses,
-                               config: GravityConfig = DEFAULT_GRAVITY,
-                               num_segments: int | None = None):
-    """Exact all-pairs forces [N, D] (fp32) from row segments.
-
-    Counterpart of ``brute_force_pallas_segmented``: bodies are cut into S
-    segments of ``t_seg`` rows (rounded up to 128, S recomputed, padded at
-    2e9 with zero mass), each segment's own pairs go through one K1 launch
-    and each unordered segment pair through one K3 launch, so every pair is
-    swept once. ``num_segments`` defaults to ⌈N / 2^20⌉; ≤ 1 is one K1
-    launch. The TPU needed the split for its dispatch watchdog; the card has
-    none, so ``BruteForce_CUDA`` makes one K1 launch at any N and this is the
-    API counterpart. A cross pair is one K3 launch (``chunk=t_seg``), where
-    the JAX driver traces its pair's chunk × chunk sub-calls into one
-    dispatch.
-    """
-    _check_shapes(positions, masses)
-    n, dim = positions.shape
-    if num_segments is None:
-        num_segments = max(1, -(-n // SEGMENT_ROWS))
-    if num_segments <= 1:
-        return brute_force_cuda(positions, masses, config, mode="symmetric")
-    t_seg = -(-(-(-n // num_segments)) // 128) * 128
-    num_segments = -(-n // t_seg)
-    n_pad = t_seg * num_segments
-    dev = positions.device
-    pos = torch.full((n_pad, dim), _PAD_POS, dtype=torch.float32, device=dev)
-    pos[:n] = positions
-    mass = torch.zeros((n_pad,), dtype=torch.float32, device=dev)
-    mass[:n] = masses
-    seg = [(pos[i * t_seg:(i + 1) * t_seg], mass[i * t_seg:(i + 1) * t_seg])
-           for i in range(num_segments)]
-    forces = [brute_force_cuda(p, m, config, mode="symmetric")
-              for p, m in seg]
-    for i in range(num_segments):
-        for j in range(i + 1, num_segments):
-            (pi, mi), (pj, mj) = seg[i], seg[j]
-            acc_t, part_s = sym_tile_cuda(pi, mi, pj, mj, config.softening,
-                                          chunk=t_seg)
-            forces[i] = forces[i] + (config.G * mi)[:, None] * acc_t
-            forces[j] = forces[j] + (config.G * mj)[:, None] * part_s
-    return torch.cat(forces)[:n]
 
 
 # --- K4: fused small-N stepping ----------------------------------------------

@@ -20,7 +20,7 @@ sharded tree tiers and the body-sharded LET tiers, driven from one process
 from .let_bvh import let_bvh  # noqa: F401
 from .let_tree import let_barnes_hut, let_fmm  # noqa: F401
 from .mesh import BODY_AXIS, Mesh, make_mesh, shard_bodies  # noqa: F401
-from .ring import ring_all_pairs_segmented, ring_brute_force  # noqa: F401
+from .ring import ring_brute_force  # noqa: F401
 from .sharded_tree import (  # noqa: F401
     barnes_hut_sharded,
     bvh_sharded,

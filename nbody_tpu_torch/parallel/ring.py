@@ -75,9 +75,9 @@ def plain_local_accel(targets, src_pos, src_mass, softening):
 
 
 def plain_sym_accel(tpos, tmass, spos, smass, softening):
-    """The plain two-output engine: ``_accel_rows_sym`` in row blocks,
-    guarded."""
-    return cb._sym_tile_rows(tpos, tmass, spos, smass, softening, guard=True)
+    """The plain two-output engine: K3's plain version, guarded, in the
+    inputs' dtype."""
+    return cb.sym_tile_plain(tpos, tmass, spos, smass, softening, guard=True)
 
 
 def _engines(positions: torch.Tensor, local_accel, sym_accel):
@@ -251,91 +251,3 @@ def ring_brute_force(
     _count_bytes(acc, mesh.devices, [positions.device] * p)
     return _finish(mesh, acc, mass, config, n, positions.device)
 
-
-# ---------------------------------------------------------------------------
-# The ring in bounded pieces: row chunks inside each ring step
-# ---------------------------------------------------------------------------
-#
-# The JAX package drives this ring from the host, one dispatch per rotation,
-# tile chunk and return hop, so that no dispatch outruns the TPU's watchdog.
-# The card has no such watchdog; the port keeps the driver for its bounded
-# launches and its equality with ring_brute_force.
-
-
-def _seg_rows_for(shard_rows: int, dim: int, pair_budget: int) -> int:
-    """Target-row chunk so chunk·shard_rows pairs ≤ pair_budget (pow2)."""
-    rows = max(128, pair_budget // max(shard_rows, 1))
-    rows = 1 << (rows.bit_length() - 1)
-    return min(rows, shard_rows)
-
-
-def segment_plan(n: int, num_shards: int, dim: int,
-                 pair_budget: int) -> Tuple[int, int]:
-    """(rows a chunk, chunks a shard) of :func:`ring_all_pairs_segmented`.
-    The chunk rows divide the shard: N is padded up, never truncated (a
-    clamped dynamic_slice of a ragged tail chunk would re-read the previous
-    chunk's rows in the JAX program)."""
-    shard_rows = pad_to_multiple(n, num_shards * 128) // num_shards
-    seg_target = _seg_rows_for(shard_rows, dim, pair_budget)
-    nseg = -(-shard_rows // seg_target)
-    seg_rows = pad_to_multiple(-(-shard_rows // nseg), 128)
-    return seg_rows, nseg
-
-
-def ring_all_pairs_segmented(
-    positions: torch.Tensor,
-    masses: torch.Tensor,
-    config: GravityConfig = DEFAULT_GRAVITY,
-    mesh: Optional[Mesh] = None,
-    sym_accel: Optional[SymAccelFn] = None,
-    local_accel: Optional[LocalAccelFn] = None,
-    pair_budget: int = 1 << 40,
-) -> torch.Tensor:
-    """Exact Newton-3 ring forces [N, D] with every tile bounded to
-    ``pair_budget`` pairs.
-
-    The arithmetic of ``ring_brute_force(symmetric=True)``, driven step by
-    step: per ring step one rotation of the sources, then one tile per
-    chunk of ``seg_rows`` target rows (:func:`segment_plan`), the target
-    rows placed in order and the sources' shares summed over the chunks,
-    then the shares' s-hop return. The self blocks go through
-    ``local_accel`` chunk by chunk. The default budget (2^40) never splits
-    a shard of ≤ 1M rows.
-    """
-    mesh = make_mesh() if mesh is None else mesh
-    mesh.check(positions, masses)
-    local_accel, sym_accel = _engines(positions, local_accel, sym_accel)
-    p = mesh.num_shards
-    n, d = positions.shape
-    soft = float(config.softening)
-    seg_rows, nseg = segment_plan(n, p, d, pair_budget)
-    pos_p, mass_p = _pad(positions, masses, seg_rows * nseg * p)
-    pos, mass = shard_bodies(mesh, pos_p, mass_p)
-
-    def full_tile(r, src_pos, src_mass, self_pair):
-        """Shard r's rows chunk by chunk against the resident sources:
-        (target rows, the sources' share summed over the chunks)."""
-        accs, part = [], None
-        for c in range(nseg):
-            tp = pos[r][c * seg_rows:(c + 1) * seg_rows]
-            tm = mass[r][c * seg_rows:(c + 1) * seg_rows]
-            if self_pair:
-                accs.append(local_accel(tp, src_pos, src_mass, soft))
-                continue
-            a, q = sym_accel(tp, tm, src_pos, src_mass, soft)
-            accs.append(a)
-            part = q if part is None else part + q
-        return (accs[0] if nseg == 1 else torch.cat(accs)), part
-
-    acc = mesh.per_shard(lambda r: full_tile(r, pos[r], mass[r], True)[0])
-    src = list(zip(pos, mass))
-    for s in range(1, _forward_steps(p) + 1):
-        src = mesh.rotate(src)
-        tiles = mesh.per_shard(
-            lambda r: full_tile(r, src[r][0], src[r][1], False)
-            if _keeps_half_step(s, p, r)
-            else (torch.zeros_like(pos[r]), torch.zeros_like(pos[r])))
-        # The share on shard b belongs to block b − s: s reverse hops home.
-        back = mesh.rotate([t[1] for t in tiles], -s)
-        acc = [a + t[0] + b for a, t, b in zip(acc, tiles, back)]
-    return _finish(mesh, acc, mass, config, n, positions.device)

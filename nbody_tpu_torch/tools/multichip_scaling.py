@@ -17,7 +17,7 @@ of ``cuda:0`` (``--cpu``: a CPU mesh), and the census is the mesh's own
 (``Mesh.census``): per collective its calls and its output bytes summed
 over the shards, for one force evaluation. The rings' counts are checked:
 the one-sided ring (``ring_one_sided``, the JAX ring with
-``symmetric=False``) makes P − 1 ``rotate``s, the Newton-3 rings one
+``symmetric=False``) makes P − 1 ``rotate``s, the Newton-3 ring one
 forward and one return ``rotate`` per forward hop.
 
 Shard counts a tier does not take are ``refused`` rows, each checked to
@@ -44,7 +44,7 @@ from ..config import GravityConfig
 from ..ops.brute_force import brute_force_direct
 from ..parallel import (barnes_hut_sharded, bvh_sharded, fmm_sharded,
                         let_barnes_hut, let_bvh, let_fmm, make_mesh,
-                        ring_all_pairs_segmented, ring_brute_force)
+                        ring_brute_force)
 from ..parallel.ring import _forward_steps
 from ..state import random_system
 from ..utils.accuracy import scale_normalized_error
@@ -61,7 +61,6 @@ LEAF_LEVEL = 3
 TIERS = {
     "ring_brute_force": 1e-5,
     "ring_one_sided": 1e-5,
-    "ring_segmented": 1e-5,
     "sharded_fmm": 5e-4,
     "sharded_barnes_hut": 1.3e-2,
     "sharded_bvh": 3e-3,
@@ -76,18 +75,12 @@ LET_TIERS = ("let_barnes_hut", "let_fmm", "let_bvh")
 
 def tier_fns(pos, mass, cfg, mesh) -> Dict[str, Callable[[], torch.Tensor]]:
     """Each tier's one force evaluation, with the JAX tool's knobs."""
-    n, p = pos.shape[0], mesh.num_shards
     return {
         "ring_brute_force": lambda: ring_brute_force(pos, mass, cfg,
                                                      mesh=mesh),
         "ring_one_sided": lambda: ring_brute_force(pos, mass, cfg,
                                                    mesh=mesh,
                                                    symmetric=False),
-        # A pair budget that makes >= 2 row chunks a ring step, so the
-        # chunked composition is what runs.
-        "ring_segmented": lambda: ring_all_pairs_segmented(
-            pos, mass, cfg, mesh=mesh,
-            pair_budget=max(128, n // p // 2) * (n // p)),
         "sharded_fmm": lambda: fmm_sharded(pos, mass, cfg, mesh=mesh,
                                            order=6, leaf_level=LEAF_LEVEL),
         "sharded_barnes_hut": lambda: barnes_hut_sharded(
@@ -116,7 +109,7 @@ def expected_rotates(tier: str, p: int) -> Optional[int]:
     """The ``rotate`` calls of one ring evaluation on ``p`` shards."""
     if tier == "ring_one_sided":
         return p - 1
-    if tier in ("ring_brute_force", "ring_segmented"):
+    if tier == "ring_brute_force":
         return 2 * _forward_steps(p)
     return None
 

@@ -244,6 +244,41 @@ def test_k3_kernel_matches_plain_on_card(cuda_device, t, s, dim, softening):
         assert err < 1e-4, err
 
 
+@pytest.mark.cuda
+def test_k3_is_one_launch_at_any_tile_size(cuda_device):
+    """A 600,000 x 600,000 2D tile, both sides above the JAX package's
+    524,288-row chunk, is one K3 launch. On sampled rows of each side, the
+    old chunk's edges among them, both outputs are within 1e-4
+    scale-normalized of the f64 plain version on the card, and they equal
+    two calls on the halves of the sources (acc_t their sum, part_s their
+    concatenation) within the same bound."""
+    t = s = 600_000
+    pos, mass = _bodies(t + s, 2, seed=21)
+    tp, tm, sp, sm = (torch.from_numpy(a).to(cuda_device)
+                      for a in (pos[:t], mass[:t], pos[t:], mass[t:]))
+    before = cuda_build.LAUNCHES["sym_tile"]
+    acc_t, part_s = cb.sym_tile_cuda(tp, tm, sp, sm, 1e-6)
+    torch.cuda.synchronize()
+    assert cuda_build.LAUNCHES["sym_tile"] == before + 1
+    gen = torch.Generator().manual_seed(21)
+    rows = torch.cat([torch.tensor([0, 524_287, 524_288, t - 1]),
+                      torch.randperm(t, generator=gen)[:508]]).to(cuda_device)
+    tp64, tm64, sp64, sm64 = (a.double() for a in (tp, tm, sp, sm))
+    want_t = cb.sym_tile_plain(tp64[rows], tm64[rows], sp64, sm64, 1e-6)[0]
+    want_s = cb.sym_tile_plain(sp64[rows], sm64[rows], tp64, tm64, 1e-6)[0]
+    for have, want in ((acc_t[rows], want_t), (part_s[rows], want_s)):
+        assert bool(torch.isfinite(have).all())
+        err = float(scale_normalized_error(have.double(), want))
+        assert err < 1e-4, err
+    h = s // 2
+    a0, p0 = cb.sym_tile_cuda(tp, tm, sp[:h], sm[:h], 1e-6)
+    a1, p1 = cb.sym_tile_cuda(tp, tm, sp[h:], sm[h:], 1e-6)
+    for have, want in ((acc_t, a0.double() + a1.double()),
+                       (part_s, torch.cat([p0, p1]).double())):
+        err = float(scale_normalized_error(have.double(), want))
+        assert err < 1e-4, err
+
+
 # --- the build reports read on the card --------------------------------------
 
 _LOG = """== symmetric.cu

@@ -62,7 +62,6 @@ for name in ("nbody_tpu_torch.ops.fmm", "nbody_tpu_torch.ops.sparse_grid",
              "nbody_tpu_torch.tools.bvh_far_flip_probe",
              "nbody_tpu_torch.tools.local_leaf_check",
              "nbody_tpu_torch.tools.smalln_floor",
-             "nbody_tpu_torch.tools.segmented_probe",
              "nbody_tpu_torch.tools.brute_variants",
              "nbody_tpu_torch.tools.mxu_narrow_bench",
              "nbody_tpu_torch.examples",

@@ -1,7 +1,7 @@
 """The port's probes (nbody_tpu_torch.tools: tree_phase_bench,
 clustered_stress, clustered_phase, bh_bigN_probe, bh_near_probe, bh_tune,
 bvh_bench, bvh_far_flip_probe, local_leaf_check, smalln_floor,
-segmented_probe, brute_variants, mxu_narrow_bench) against the repo's
+brute_variants, mxu_narrow_bench) against the repo's
 JAX tools in ``tools/`` and the JAX package, on the CPU.
 
 Tolerances:
@@ -14,8 +14,7 @@ Tolerances:
 - brute_variants' rows in fp32: 1e-4 scale-normalized against the JAX
   package's blocked sum (the JAX kernel tests' own tolerance); the mxu
   rows within 64 fp32 ulps of their cancellation scale (``MXU_ULPS``, the
-  gate ``chip_smoke.py`` [10] holds K5 to) against the f64 sum;
-- segmented_probe: its own checks (3e-4), through the plain versions.
+  gate ``chip_smoke.py`` [10] holds K5 to) against the f64 sum.
 
 Tests marked ``cuda`` run each probe at a tiny size on the card and skip
 without one.
@@ -54,8 +53,8 @@ from nbody_tpu_torch.tools import (bh_bigN_probe, bh_near_probe,  # noqa
                                    bh_tune, brute_variants, bvh_bench,
                                    bvh_far_flip_probe, clustered_phase,
                                    clustered_stress, local_leaf_check,
-                                   mxu_narrow_bench, segmented_probe,
-                                   smalln_floor, tree_phase_bench)
+                                   mxu_narrow_bench, smalln_floor,
+                                   tree_phase_bench)
 from nbody_tpu_torch.utils.accuracy import \
     scale_normalized_error  # noqa: E402
 
@@ -91,7 +90,7 @@ def _mxu_error_ulps(pos, mass, cfg, got, block_t) -> float:
 PROBES = {m.__name__.rsplit(".", 1)[1]: m for m in (
     tree_phase_bench, clustered_stress, clustered_phase, bh_bigN_probe,
     bh_near_probe, bh_tune, bvh_bench, bvh_far_flip_probe, local_leaf_check,
-    smalln_floor, segmented_probe, brute_variants, mxu_narrow_bench)}
+    smalln_floor, brute_variants, mxu_narrow_bench)}
 #: JAX flags the port replaces: output paths (``--out`` there is under
 #: ``artifacts/``, here under ``results/torch/``) and ``--cpu`` (here
 #: ``--device cpu``).
@@ -166,8 +165,6 @@ def test_defaults_equal_the_jax_tools(name):
     seeds = _jax_key_seeds(name)
     if hasattr(PROBES[name], "SEED"):
         assert seeds == {PROBES[name].SEED}
-    elif name == "segmented_probe":
-        assert seeds == {3, 4}
 
 
 def test_module_constants_equal_the_jax_tools():
@@ -392,18 +389,7 @@ def test_local_leaf_errors_equal_the_jax_package():
     assert len({r["err"] for r in rows}) == len(rows)  # a far field each
 
 
-# --- segmented_probe, brute_variants -----------------------------------------
-
-def test_segmented_probe_checks_pass_through_the_plain_versions(
-        monkeypatch, tmp_path):
-    monkeypatch.setattr(segmented_probe, "CHECK_N", 2500)
-    out = tmp_path / "seg.json"
-    assert segmented_probe.main(["--device", "cpu", "--out", str(out)]) == 0
-    rec = json.loads(out.read_text())
-    assert rec["n"] == 2500
-    assert 0 < rec["err_seg3_vs_symmetric"] < segmented_probe.TOL
-    assert 0 < rec["err_seg5_vs_seg3"] < segmented_probe.TOL
-
+# --- brute_variants -----------------------------------------------------------
 
 def test_brute_variants_cover_every_mode_and_match_the_jax_oracle(tmp_path):
     kws = [kw for _, kw in brute_variants.VARIANTS]
@@ -546,7 +532,6 @@ CARD_ARGV = {
     "bvh_far_flip_probe": ["--cases", "5000:2", "--samples", "64"],
     "local_leaf_check": ["-N", "2000", "--time"],
     "smalln_floor": ["--n", "256"],
-    "segmented_probe": [],
     "brute_variants": ["--n", "4096"],
     "mxu_narrow_bench": [],
 }

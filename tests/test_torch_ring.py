@@ -87,28 +87,20 @@ def test_one_sided_ring_matches_jax(n):
 
 @pytest.mark.parametrize("p,n", [(3, 500), (4, 1000)])
 def test_segmented_ring_matches_jax(p, n):
-    """A budget of 2^15 pairs splits each shard of 256 rows into 2 chunks
-    of 128, odd and even P; N is ragged, so the shards are padded."""
+    """The JAX package's watchdog-bounded ring at a budget of 2^15 pairs,
+    which splits each shard into row chunks, against the port's one
+    Newton-3 ring, odd and even P; N is ragged, so the shards are
+    padded."""
     budget = 1 << 15
     pos, mass = _bodies(n, 3, seed=30 + p)
-    assert tring.segment_plan(n, p, 3, budget) == (128, 2)
-    have, want = _both(jring.ring_all_pairs_segmented,
-                       tring.ring_all_pairs_segmented, pos, mass, p, {},
-                       pair_budget=budget)
-    _close(have, want)
-    # And the unsegmented port ring on the same bodies.
-    _close(have, tring.ring_brute_force(
-        torch.from_numpy(pos), torch.from_numpy(mass), TGravity(),
-        mesh=_meshes(p)[1]).numpy())
-
-
-def test_segment_plan_pads_and_never_truncates():
-    """The chunk rows divide the shard; N is padded up (never cut)."""
-    for n, p, budget in [(1000, 3, 1 << 14), (300, 2, 1 << 40),
-                         (5000, 4, 1 << 17)]:
-        seg_rows, nseg = tring.segment_plan(n, p, 2, budget)
-        assert seg_rows % 128 == 0
-        assert seg_rows * nseg * p >= n
+    jm, tm = _meshes(p)
+    want = jring.ring_all_pairs_segmented(
+        jnp.asarray(pos), jnp.asarray(mass), JGravity(), mesh=jm,
+        pair_budget=budget)
+    have = tring.ring_brute_force(torch.from_numpy(pos),
+                                  torch.from_numpy(mass), TGravity(), mesh=tm)
+    assert have.shape == pos.shape and have.dtype == torch.float64
+    _close(have.numpy(), want)
 
 
 def _counting(fn, log, key):

@@ -1,9 +1,12 @@
-"""K3's plain version and the segmented driver (nbody_tpu_torch.ops.
-cuda_brute) against the JAX Pallas sym tile and segmented driver, run in
-interpret mode, and the f64 oracle.
+"""K3's plain version and K1's (nbody_tpu_torch.ops.cuda_brute) against
+the JAX Pallas sym tile and segmented sum
+(``brute_force_pallas_segmented``), run in interpret mode, and the f64
+oracle. The JAX package splits a large rectangle into chunks and a large
+N into segments for TPU limits; the port sums each in one pass.
 
-K3 itself runs only on the card (``chip_smoke.py``); here the wrappers get
-CPU tensors and take their plain versions.
+K3 itself runs only on the card (``chip_smoke.py``,
+``tests/test_torch_newton3.py``); here the wrappers get CPU tensors and
+take their plain versions.
 """
 
 import jax.numpy as jnp
@@ -54,9 +57,10 @@ def test_sym_tile_plain_matches_pallas(t, dim, jax_kw):
     tp = [torch.from_numpy(a) for a in split]
     have = cb.sym_tile_plain(*tp, softening=0.0)
     _assert_tile_close(have, want)
-    # The chunked split (both axes, ragged tails) changes neither output.
-    _assert_tile_close(cb.sym_tile_cuda(*tp, softening=0.0, chunk=64),
-                       [h.numpy() for h in have])
+    # The wrapper on CPU tensors is the plain version, one pass over the
+    # rectangle where the JAX call at chunk=64 splits both axes.
+    for h, w in zip(cb.sym_tile_cuda(*tp, softening=0.0), have):
+        assert torch.equal(h, w)
 
 
 def test_sym_tile_matches_one_sided_sums():
@@ -64,7 +68,8 @@ def test_sym_tile_matches_one_sided_sums():
     pos, mass = _bodies(250, 3, seed=3)
     p, m = torch.from_numpy(pos).double(), torch.from_numpy(mass).double()
     acc_t, part_s = cb.sym_tile_plain(p[:90], m[:90], p[90:], m[90:],
-                                      softening=1e-6, chunk=40)
+                                      softening=1e-6)
+    assert acc_t.dtype == part_s.dtype == torch.float64
     np.testing.assert_allclose(
         acc_t.numpy(),
         cb.pairwise_accel_plain(p[:90], p[90:], m[90:], 1e-6).numpy(),
@@ -92,25 +97,21 @@ def test_sym_accel_adapter_and_guard():
 @pytest.mark.parametrize("n,num_segments", [(500, 3), (384, 2), (129, 4),
                                             (256, 1)])
 def test_segmented_matches_pallas_and_oracle(dim, n, num_segments):
+    """The JAX package's segmented sum against the port's one K1 pass.
+    On the port's side each case is its own N and dim (ragged, below and
+    at powers of two); num_segments varies only the JAX reference."""
     pos, mass = _bodies(n, dim, seed=n + dim)
     want = brute_force_pallas_segmented(jnp.asarray(pos), jnp.asarray(mass),
                                         JGravity(), num_segments=num_segments,
                                         interpret=True)
     want64 = brute_force_direct(jnp.asarray(pos, jnp.float64),
                                 jnp.asarray(mass, jnp.float64), JGravity())
-    have = cb.brute_force_cuda_segmented(torch.from_numpy(pos),
-                                         torch.from_numpy(mass), TGravity(),
-                                         num_segments=num_segments)
+    have = cb.brute_force_cuda(torch.from_numpy(pos),
+                               torch.from_numpy(mass), TGravity(),
+                               mode="symmetric")
     assert have.dtype == torch.float32 and have.shape == (n, dim)
     assert float(scale_normalized_error(have, np.asarray(want))) < 1e-4
     assert float(scale_normalized_error(have, np.asarray(want64))) < 1e-4
-
-
-def test_segmented_default_is_one_segment_below_2_20():
-    pos, mass = _bodies(200, 2, seed=9)
-    tp, tm = torch.from_numpy(pos), torch.from_numpy(mass)
-    assert torch.equal(cb.brute_force_cuda_segmented(tp, tm),
-                       cb.brute_force_cuda(tp, tm, mode="symmetric"))
 
 
 def test_cpu_tensors_launch_nothing():
@@ -118,6 +119,6 @@ def test_cpu_tensors_launch_nothing():
     tp, tm = torch.from_numpy(pos), torch.from_numpy(mass)
     before = dict(cb.LAUNCHES)
     cb.sym_tile_cuda(tp[:100], tm[:100], tp[100:], tm[100:])
-    cb.brute_force_cuda_segmented(tp, tm, num_segments=3)
+    cb.brute_force_cuda(tp, tm, mode="symmetric")
     cb.local_accel_cuda(tp[:10], tp, tm, 1e-6)
     assert cb.LAUNCHES == before
