@@ -242,8 +242,8 @@ BVH_PARLAY_S = {(100_000, 2): 0.256, (100_000, 3): 1.659,
 # the card (one process; the device repeated in the mesh, as the JAX tests
 # repeat CPU devices), at the single-device phases' shapes: the Newton-3
 # ring at HEADLINE_N 2D against the f64 sum and K1 (K2 one launch per self
-# block, K3 one per forward tile, the even-P half step only on shards
-# b < P/2: the port skips the masked tiles); odd and even P on RING_SMALL
+# block, K3 one per forward tile, the even-P half step's pairs split
+# between their two shards, half a tile each); odd and even P on RING_SMALL
 # (N, P), 3D, a ragged N among them; the one-sided ring at TIMED_N 3D;
 # the sharded tiers against their unsharded runs and the f64
 # oracle at [12] / [14] / [16]'s gates; the dry run with the JAX package's
@@ -1808,8 +1808,9 @@ def phase_times(cb, gen, dev, default, smi) -> dict:
 
 def ring_k3_launches(p: int) -> int:
     """K3 launches of the Newton-3 ring on P shards: P tiles a forward
-    step, P/2 at the even-P half step."""
-    return p * ((p - 1) // 2) + (p // 2 if p % 2 == 0 else 0)
+    step over ⌈(P−1)/2⌉ = P // 2 steps (at even P the last splits each
+    pair's rectangle between its two shards)."""
+    return p * (p // 2)
 
 
 def ring_checks(ring, cb, mesh, gen, dev, default, smi) -> dict:

@@ -10,9 +10,10 @@ block. Targets are disjoint, so no sum across shards is needed.
 block goes through the one-sided engine; ⌈(P−1)/2⌉ forward hops each run
 one two-output tile on shard b, giving its own rows and the Newton-3 share
 of the block b−s it holds; a return pass carries the shares home. For even
-P the step s = P/2 would count the pair (b, b−P/2) twice, so only shards
-b < P/2 evaluate it. Half the arithmetic of the one-sided ring for the same
-bytes moved.
+P the step s = P/2 finds the pair (b, b + P/2) on both of its shards, so
+each evaluates half of its rectangle (:func:`_tile_rows`): every card runs
+one tile a forward step, and every pair term is evaluated once. Half the
+arithmetic of the one-sided ring for the same bytes moved.
 
 **Engines**, per shard: fp32 CUDA tensors run K2 (``local_accel_cuda``,
 the one-sided tile) and K3 (``sym_accel_cuda``, the two-output tile); any
@@ -26,9 +27,11 @@ What differs from the JAX package, and why:
   launches run with its card current.
 * The one-sided ring makes P − 1 hops where the JAX scan makes P (its last
   brings every block home and is not read).
-* At the even-P half step the shards b ≥ P/2 launch nothing, where the JAX
-  program evaluates their tile and multiplies it by 0: their zero partials
-  add nothing, so the numbers are the same, with P/2 fewer K3 launches.
+* At the even-P half step the two shards of a pair each evaluate one half
+  of its rectangle, where the JAX program evaluates the whole tile on every
+  shard and multiplies the shards b ≥ P/2 by 0. The pair terms are the
+  same; only the order of some sums differs, and no card idles while the
+  other evaluates the pair.
 
 **Spans and counters** (``utils/profiling.py``, off by default; off, each
 is one flag check and the forces are bit for bit those of spans on): per
@@ -39,7 +42,8 @@ the counters ``ring.tiles`` (the two-output tiles evaluated), ``ring.hops``
 (the rotations, forward and return) and ``ring.bytes`` (the bytes that
 leave their card: the scatter from the bodies' card, every rotation and
 the gather; a move between two shards on one device counts 0). At
-N = 5e6, D = 2, P = 4 in fp32: 6 tiles, 4 hops, 275,000,000 bytes.
+N = 5e6, D = 2, P = 4 in fp32: 8 tiles (each half-step half is one),
+4 hops, 275,000,000 bytes.
 """
 
 from __future__ import annotations
@@ -142,13 +146,34 @@ def _rotate(mesh: Mesh, xs, hops: int = 1) -> list:
 
 
 def _forward_steps(p: int) -> int:
-    """⌈(P−1)/2⌉ forward hops, P/2 for even P (its last one halved)."""
-    return p // 2 if p % 2 == 0 else (p - 1) // 2
+    """⌈(P−1)/2⌉ = ⌊P/2⌋ forward hops; at even P the last step's pairs are
+    split between their two shards (:func:`_tile_rows`)."""
+    return p // 2
 
 
-def _keeps_half_step(s: int, p: int, shard: int) -> bool:
-    """Even P, step s = P/2: only shards b < P/2 evaluate the pair."""
-    return not (p % 2 == 0 and s == p // 2) or shard < p // 2
+_ALL = slice(None)
+
+
+def _tile_rows(s: int, p: int, shard: int, rows: int) -> Tuple[slice, slice]:
+    """(target rows, source rows) of the tile ``shard`` evaluates at step s:
+    all of both, except at the even-P half step s = P/2, where shards b and
+    b + P/2 hold the same pair. There, with h = ⌊rows/2⌋, shard b < P/2
+    takes its targets [:h] against all of block b + P/2, and shard b + P/2
+    all its targets against block b's rows [h:]: the halves cover the
+    rectangle once and differ by at most one row of block b."""
+    if p % 2 or s != p // 2:
+        return _ALL, _ALL
+    h = rows // 2
+    return (slice(0, h), _ALL) if shard < p // 2 else (_ALL, slice(h, None))
+
+
+def _add_rows(x: torch.Tensor, y: torch.Tensor, rows: slice) -> torch.Tensor:
+    """x + y, where y holds x's ``rows`` alone."""
+    if rows == _ALL:
+        return x + y
+    out = x.clone()
+    out[rows] += y
+    return out
 
 
 def _ring_one_sided(mesh: Mesh, pos, mass, softening, local_accel):
@@ -183,12 +208,12 @@ def _ring_symmetric(mesh: Mesh, pos, mass, softening, local_accel,
             return local_accel(pos[r], pos[r], mass[r], softening)
 
     def tile(r):
-        if not _keeps_half_step(s, p, r):
-            return None
+        t, u = _tile_rows(s, p, r, pos[r].shape[0])
         profiling.count("ring.tiles")
         with _shard_span("tile", mesh, r):
-            return sym_accel(pos[r], mass[r], src[r][0], src[r][1],
-                             softening)
+            acc_t, part_s = sym_accel(pos[r][t], mass[r][t], src[r][0][u],
+                                      src[r][1][u], softening)
+        return (acc_t, t), (part_s, u)
 
     acc = mesh.per_shard(self_block)
     src = list(zip(pos, mass))
@@ -196,11 +221,11 @@ def _ring_symmetric(mesh: Mesh, pos, mass, softening, local_accel,
     for s in range(1, _forward_steps(p) + 1):
         src = _rotate(mesh, src)
         tiles = mesh.per_shard(tile)
-        acc = [a if t is None else a + t[0] for a, t in zip(acc, tiles)]
-        parts.append([None if t is None else t[1] for t in tiles])
+        acc = [_add_rows(a, *t[0]) for a, t in zip(acc, tiles)]
+        parts.append([t[1] for t in tiles])
     ret = [torch.zeros_like(x) for x in pos]
     for part_s in reversed(parts):
-        ret = [x if q is None else x + q for x, q in zip(ret, part_s)]
+        ret = [_add_rows(x, *q) for x, q in zip(ret, part_s)]
         ret = _rotate(mesh, ret, -1)
     return [a + b for a, b in zip(acc, ret)]
 

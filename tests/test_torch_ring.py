@@ -6,7 +6,8 @@ Tolerance: in f64 both rings run the same plain rows (the pair guard on)
 over the same shard pairs; only the order of a few sums differs, so forces
 agree to rtol 1e-10 (of the largest force). Engines are counted by
 wrapping them: the Newton-3 ring launches P self blocks and, per forward
-step, one tile per shard, P/2 at the even-P half step.
+step, one tile per shard; at the even-P half step each tile is half of a
+pair's rectangle, the other half on the pair's other shard.
 """
 
 import jax
@@ -110,12 +111,12 @@ def _counting(fn, log, key):
     return wrapped
 
 
-@pytest.mark.parametrize("p,self_blocks,tiles", [(2, 2, 1), (3, 3, 3),
-                                                 (4, 4, 6), (8, 8, 28)])
+@pytest.mark.parametrize("p,self_blocks,tiles", [(2, 2, 2), (3, 3, 3),
+                                                 (4, 4, 8), (8, 8, 32)])
 def test_symmetric_ring_engine_calls(p, self_blocks, tiles):
-    """P self blocks; ⌈(P−1)/2⌉ steps of P tiles, the even-P half step
-    only on shards b < P/2 (the port skips the masked tiles): P(P−1)/2
-    tiles, each unordered shard pair once."""
+    """P self blocks; ⌈(P−1)/2⌉ steps of P tiles, the even-P half step's
+    pairs split between their two shards: P·⌈(P−1)/2⌉ tiles, each
+    unordered shard pair once (the test below checks the coverage)."""
     log = {"local": 0, "sym": 0}
     pos, mass = _bodies(16 * p, 3, seed=40)
     tp, tm = torch.from_numpy(pos), torch.from_numpy(mass)
@@ -126,6 +127,62 @@ def test_symmetric_ring_engine_calls(p, self_blocks, tiles):
     assert log == {"local": self_blocks, "sym": tiles}
     _close(got.numpy(), tring.ring_brute_force(tp, tm, TGravity(),
                                                mesh=_meshes(1)[1]).numpy())
+
+
+def _recording(fn, index, calls):
+    """``fn`` wrapped to log each call's (target, source) body indices,
+    read back from the masses (distinct; 0 marks a padding body)."""
+    def ids(m):
+        return [index[v] for v in m.tolist() if v != 0.0]
+
+    def wrapped(tpos, tmass, spos, smass, softening):
+        calls.append((ids(tmass), ids(smass),
+                      tpos.shape[0] * spos.shape[0]))
+        return fn(tpos, tmass, spos, smass, softening)
+    return wrapped
+
+
+@pytest.mark.parametrize("one_device", [False, True])
+@pytest.mark.parametrize("p", [2, 3, 4, 6])
+def test_symmetric_ring_evaluates_each_cross_pair_once(p, one_device):
+    """Every unordered pair of bodies in different shards is in exactly one
+    two-output tile; at even P each pair of blocks (b, b + P/2) is two
+    calls, whose areas differ by at most one row of a block, and every
+    other pair of blocks one call. N is ragged, so the last shard holds a
+    padding body. On a mesh of ``cpu:0..P-1`` and on ``[cpu] * P``."""
+    rows = 10
+    n = rows * p - 1
+    pos, _ = _bodies(n, 3, seed=50 + p)
+    mass = 1.0 + np.arange(n) / n
+    index = {float(m): i for i, m in enumerate(mass)}
+    mesh = tmesh.make_mesh([torch.device("cpu") if one_device else
+                            torch.device("cpu", r) for r in range(p)])
+    calls = []
+    tp, tm = torch.from_numpy(pos), torch.from_numpy(mass)
+    got = tring.ring_brute_force(
+        tp, tm, TGravity(), mesh=mesh,
+        sym_accel=_recording(tring.plain_sym_accel, index, calls))
+    seen = np.zeros((n, n), dtype=np.int64)
+    per_pair = {}
+    for t, u, area in calls:
+        np.add.at(seen, np.ix_(t, u), 1)
+        pair = frozenset((t[0] // rows, u[0] // rows))
+        per_pair.setdefault(pair, []).append(area)
+    block = np.arange(n) // rows
+    cross = block[:, None] != block[None, :]
+    both = seen + seen.T
+    assert np.all(both[cross] == 1) and np.all(both[~cross] == 0)
+    assert len(per_pair) == p * (p - 1) // 2
+    for pair, areas in per_pair.items():
+        a, b = sorted(pair)
+        halves = p % 2 == 0 and b - a == p // 2
+        assert len(areas) == (2 if halves else 1), (pair, areas)
+        assert max(areas) - min(areas) <= rows
+    _close(got.numpy(), tring.ring_brute_force(tp, tm, TGravity(),
+                                               mesh=_meshes(1)[1]).numpy())
+    want = jring.ring_brute_force(jnp.asarray(pos), jnp.asarray(mass),
+                                  JGravity(), mesh=_meshes(p)[0])
+    _close(got.numpy(), want)
 
 
 def test_plain_engines_on_cpu_tensors():

@@ -105,9 +105,9 @@ def test_simulation_ring_leapfrog_matches_reference(p, n, dim):
 
 
 def _tiles_of(p, r):
-    """Shard r's two-output tiles a call: one a forward step, less the
-    even-P half step on the shards b ≥ P/2."""
-    return p // 2 - (1 if p % 2 == 0 and r >= p // 2 else 0)
+    """Shard r's two-output tiles a call: one a forward step, ⌈(P−1)/2⌉
+    steps; at even P the last is its half of a pair's rectangle."""
+    return p // 2
 
 
 def _ring_bytes(n, dim, p, itemsize, cards, one_sided=False):
@@ -145,7 +145,7 @@ def test_newton3_ring_spans_and_counters(p, dim, dtype, cards):
     assert {r: spans.get(f"ring.tile/{r}", (0.0, 0))[1]
             for r in range(p)} == {r: 2 * _tiles_of(p, r) for r in range(p)}
     assert profiling.counter_totals() == {
-        "ring.tiles": 2 * p * (p - 1) // 2,
+        "ring.tiles": 2 * sum(_tiles_of(p, r) for r in range(p)),
         "ring.hops": 2 * 2 * (p // 2),
         "ring.bytes": 2 * _ring_bytes(n, dim, p, pos.element_size(), cards)}
 
