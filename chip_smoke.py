@@ -1042,7 +1042,7 @@ def fmm_far_allowance(fm, tree64, order) -> torch.Tensor:
     Tt, m2m = fm._tables(dim, order, torch.float64, tree64.lo.device)
     W = fm._m2m(fm._p2m_dense(tree64, order, 1024, Tt), m2m, dim, L)
     lw_leaf = fm._l2l(fm._m2l(tree64, W, order, 1), m2m, L,
-                      tree64.num_leaf_cells, W[L])
+                      tree64.num_leaf_cells)
     half = tree64.cell_sizes[L] / 2
     out = []
     for b0 in range(0, tree64.n, 1 << 16):
@@ -1092,6 +1092,8 @@ def fmm_phase_times(fm, gt, cuda_p2p, pos, mass, cfg, order) -> dict:
     L = gt.auto_leaf_level(n, dim)
     tree = gt.build_grid_tree(pos, mass, L, gt.compute_capacity(pos, L))
     Tt, m2m = fm._tables(dim, order, pos.dtype, pos.device)
+    # The local side's tables (L2L, L2P) in its own dtype.
+    Tt_l, m2m_l = fm._tables(dim, order, fm._LOCAL_DTYPE, pos.device)
     nl = tree.num_leaf_cells
     W = fm._m2m(fm._p2m_dense(tree, order, 1024, Tt), m2m, dim, L)
     Lc = fm._m2l(tree, W, order, 1)
@@ -1106,7 +1108,7 @@ def fmm_phase_times(fm, gt, cuda_p2p, pos, mass, cfg, order) -> dict:
             fm._p2m_dense(tree, order, 1024, Tt), m2m, dim, L)),
         "m2l": time_ms(lambda: fm._m2l(tree, W, order, 1)),
         "l2l_l2p": time_ms(lambda: fm._l2p(
-            tree, fm._l2l(dict(Lc), m2m, L, nl, W[L]), order, Tt)),
+            tree, fm._l2l(dict(Lc), m2m_l, L, nl), order, Tt_l)),
         "p2p_k6": time_ms(lambda: cuda_p2p.near_field_cuda(
             tree, 1, cfg.softening, 0, nl)),
         "m2l_gflop": m2l_flops / 1e9,

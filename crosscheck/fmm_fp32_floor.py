@@ -69,7 +69,7 @@ def l2p_term_sum(tree64):
     Tt, m2m = fm._tables(dim, ORDER, torch.float64, "cpu")
     W = fm._m2m(fm._p2m_dense(tree64, ORDER, 1024, Tt), m2m, dim, L)
     lw = fm._l2l(fm._m2l(tree64, W, ORDER, 1), m2m, L,
-                 tree64.num_leaf_cells, W[L])[tree64.leaf_ids].abs()
+                 tree64.num_leaf_cells)[tree64.leaf_ids].abs()
     half = tree64.cell_sizes[L] / 2
     y = (tree64.pos_sorted - fm._cell_centers(tree64, tree64.leaf_ids)) / half
     s, ds = fm._interp_and_grad_1d(ORDER, y, Tt)

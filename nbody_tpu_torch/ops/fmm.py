@@ -34,6 +34,23 @@ What differs from the JAX package, and why:
   tree on the card, the plain near field in the tree's dtype otherwise;
   ``"cuda"`` is K6 in fp32, ``"plain"`` the windowed plain version. The
   JAX package's per-batch window gather and unscatter are not ported.
+* The local side runs in float64 for an fp32 tree (the JAX package runs
+  every phase in the tree's dtype): the operators Kᵀ_δ, M2L's products
+  and sums over offsets (on the multipole weights cast to float64), L2L,
+  and L2P (each body's position in its cell's frame, the Chebyshev basis
+  and its gradient, the sum over the n^D nodes), cast to the tree's dtype
+  where L2P writes a body's far field. L2P takes the gradient of the
+  interpolated potential, and the potential of every V-list cell is
+  nearly constant across a leaf, so it cancels: the terms L2P sums are up
+  to ~1e4 times the force, and each fp32 rounding on the local side lands
+  on the force at ~1e4 ulps. In fp32 the far field read 3.7e-3 of the RMS
+  force at 4e6 3D order 8 (leaf level 5), against the 1e-4 of the direct
+  sum that the FMM is run at. The multipole side has no such cancellation
+  (sums of positive masses, an error that moves the potential smoothly
+  across the target leaf), so P2M, M2M, the multipole weights and the
+  near field stay in the tree's dtype. On an H100 float64 products run on
+  the tensor cores at the rate of float32 on the CUDA cores (67 TFLOP/s).
+  A float64 tree computes every phase in float64, as before.
 * Accuracy-bearing products must not run in TF32: on CUDA tensors
   :func:`fmm_forces` and :func:`fmm_accel_sorted` raise while
   ``torch.backends.cuda.matmul.allow_tf32`` is on.
@@ -49,10 +66,19 @@ What differs from the JAX package, and why:
   returns shard r's partial of the same stages on one tree. L2P runs only
   over the shard's bodies, where the JAX program runs every body and
   zeroes the others.
+
+Spans (:mod:`..utils.profiling`, off by default), on the tree's device:
+``fmm.build`` (the capacity scan or ``sparse_grid_stats``, and
+``build_grid_tree``), ``fmm.upward`` (P2M and M2M), ``fmm.m2l`` (M2L over
+every level), ``fmm.downward`` (L2L and L2P), ``fmm.p2p`` (the near field);
+counter ``fmm.reads``, each host read-back of a call (the capacity, the
+sparse grid's sizes, each chunk batch's window table, a shard's body
+range).
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 import math
 from typing import Optional
@@ -62,18 +88,31 @@ import torch
 
 from ..config import DEFAULT_GRAVITY, GravityConfig
 from ..utils.device_mesh import Mesh
+from ..utils.profiling import count, span
 from .grid_tree import (GridTree, _clipped_ids, _in_bounds, _near_field_accel,
                         _resolve_p2p_impl, _window_rows, auto_leaf_level,
                         build_grid_tree, cell_coords, check_grid_capacity,
                         chunk_table, compute_capacity,
                         dense_layout_degenerate, shard_leaves)
 
-# Bytes of one M2L chunk of gathered source weights [cells, chunk·n^D].
+# The dtype of the local side (module docstring): K, M2L, L2L and L2P.
+_LOCAL_DTYPE = torch.float64
+# Bytes of one M2L chunk of gathered source weights [cells, chunk·n^D],
+# in the local dtype.
 _M2L_GATHER_BYTES = 1 << 30
 # Sorted bodies an L2P block: each block gathers its own [blk, n^D] local
 # weights, so the peak stays independent of N (the whole-array gather at
-# 5e6 3D order 8 needed 19 GB of temporaries in the JAX package).
-_L2P_BLOCK = 8192
+# 5e6 3D order 8 needed 19 GB of temporaries in the JAX package). A block
+# is ~95 launches; at 65,536 bodies its float64 temporaries at order 8 in
+# 3D stay near 1 GB, and the card, not the host's launches, sets L2P's
+# pace (at 8,192, a 4e6-body call made ~46,500 launches, left the card
+# idle 58% of a step, and its time swung 12% from run to run on an H100).
+_L2P_BLOCK = 65536
+# Elements of one dense P2M batch's basis [leaves, window rows, n^D]: 2 GiB
+# in fp32. At the near field's 1,024 leaves a batch, P2M at 4e6 3D order 8
+# took the host 75-90 ms of launches for 38 ms of the card's work, and the
+# step swung 5% from run to run on an H100.
+_P2M_ELEMS = 1 << 29
 
 
 # --- Chebyshev machinery (static, numpy) -----------------------------------
@@ -187,12 +226,28 @@ def _outer_basis(factors):
     return basis
 
 
-def _tables(dim: int, order: int, dtype, device):
-    """(Tt [n, k] = T_k(t_m), the M2M operators [2^D, n^D, n^D])."""
+@functools.lru_cache(maxsize=None)
+def _device_tables(dim: int, order: int, dtype, device: torch.device):
     return (torch.as_tensor(_cheb_T(order, cheb_nodes(order)).T, dtype=dtype,
                             device=device),
             torch.as_tensor(m2m_operators(dim, order), dtype=dtype,
                             device=device))
+
+
+def _tables(dim: int, order: int, dtype, device):
+    """(Tt [n, k] = T_k(t_m), the M2M operators [2^D, n^D, n^D]) in
+    ``dtype`` on ``device``: built once for each (dim, order, dtype,
+    device) and shared by every caller, so read only: at order 8 in 3D
+    the M2M operators take the host ~40 ms to build, and their copy to the
+    card waits on its stream, which no evaluation should pay for."""
+    return _device_tables(dim, order, dtype, torch.device(device))
+
+
+def _side_tables(dim: int, order: int, dtype, device):
+    """(Tt, M2M) of the multipole side (P2M, M2M) in the tree's ``dtype``,
+    then (Tt, M2M) of the local side (L2L, L2P) in the local dtype."""
+    return (_tables(dim, order, dtype, device)
+            + _tables(dim, order, _LOCAL_DTYPE, device))
 
 
 def _check_matmul_precision(t: torch.Tensor) -> None:
@@ -205,13 +260,18 @@ def _check_matmul_precision(t: torch.Tensor) -> None:
 
 # --- The phases --------------------------------------------------------------
 
-def _leaf_half(tree: GridTree) -> torch.Tensor:
-    return tree.cell_sizes[tree.leaf_level] / 2
+def _leaf_half(tree: GridTree, dtype=None) -> torch.Tensor:
+    return tree.cell_sizes[tree.leaf_level].to(dtype) / 2
 
 
-def _cell_centers(tree: GridTree, cell_ids: torch.Tensor) -> torch.Tensor:
-    xy = cell_coords(cell_ids, tree.dim).to(tree.pos_sorted.dtype)
-    return tree.lo + (xy + 0.5) * tree.cell_sizes[tree.leaf_level]
+def _cell_centers(tree: GridTree, cell_ids: torch.Tensor,
+                  dtype=None) -> torch.Tensor:
+    """Leaf-cell centres, in ``dtype`` (by default the tree's) from the
+    tree's bounds."""
+    dtype = dtype or tree.pos_sorted.dtype
+    xy = cell_coords(cell_ids, tree.dim).to(dtype)
+    return tree.lo.to(dtype) + (xy + 0.5) * tree.cell_sizes[
+        tree.leaf_level].to(dtype)
 
 
 def _anterpolate(pos, mass, valid, centers, half, order, Tt):
@@ -244,6 +304,13 @@ def _p2m_dense(tree: GridTree, order: int, leaf_batch: int,
             tb[..., :dim], tb[..., 3] * valid, valid,
             _cell_centers(tree, ids), half, order, Tt)
     return out
+
+
+def _p2m_batch(tree: GridTree, order: int) -> int:
+    """Leaves a dense P2M batch: as many as keep its basis within
+    ``_P2M_ELEMS`` elements."""
+    rows = (tree.capacity // 8 + 1) * 8  # a leaf's window (_window_rows)
+    return max(1, _P2M_ELEMS // (rows * order ** tree.dim))
 
 
 def _sparse_chunks(tree: GridTree, num_chunks: int, chunk_size: int,
@@ -291,14 +358,29 @@ def _m2m(W_leaf: torch.Tensor, m2m: torch.Tensor, dim: int, L: int) -> dict:
     return W
 
 
-def _m2l_kernel_t(tree: GridTree, order: int, deltas) -> torch.Tensor:
-    """Stacked Kᵀ at leaf scale, [ndeltas·n^D, n^D]: row (δ, n), column m
-    is 1/|δ·h + t_n·h/2 − t_m·h/2| (source node n, target node m)."""
-    dim, dt = tree.dim, tree.pos_sorted.dtype
-    dev = tree.pos_sorted.device
-    nodes = torch.as_tensor(_tensor_nodes(dim, order), dtype=dt, device=dev)
-    dl = torch.as_tensor(np.stack([d for d, _ in deltas]), device=dev).to(dt)
-    cs = tree.cell_sizes[tree.leaf_level]
+@functools.lru_cache(maxsize=None)
+def _v_list_tables(dim: int, k: int, order: int, device: torch.device):
+    """M2L's static tables on ``device``: (offsets [nd, D] int64, per-offset
+    parity masks [nd, D, 2], the offsets and the tensor nodes [n^D, D] in
+    the local dtype). Built once for each (dim, k, order, device) and
+    shared by every caller, so read only: a copy from the host would wait
+    on the device's stream in every evaluation."""
+    deltas = _v_list_deltas(dim, k)
+    dl = torch.as_tensor(np.stack([d for d, _ in deltas]),
+                         device=device).to(torch.int64)
+    par_ok = torch.as_tensor(np.stack([p for _, p in deltas]), device=device)
+    nodes = torch.as_tensor(_tensor_nodes(dim, order), dtype=_LOCAL_DTYPE,
+                            device=device)
+    return dl, par_ok, dl.to(_LOCAL_DTYPE), nodes
+
+
+def _m2l_kernel_t(tree: GridTree, dl: torch.Tensor,
+                  nodes: torch.Tensor) -> torch.Tensor:
+    """Stacked Kᵀ at leaf scale in the dtype of ``nodes``, [nd·n^D, n^D]
+    for the offsets ``dl`` [nd, D]: row (δ, n), column m is
+    1/|δ·h + t_n·h/2 − t_m·h/2| (source node n, target node m)."""
+    dim = tree.dim
+    cs = tree.cell_sizes[tree.leaf_level].to(nodes.dtype)
     half = cs / 2
     d2 = None
     for d in range(dim):
@@ -313,20 +395,19 @@ def _m2l_kernel_t(tree: GridTree, order: int, deltas) -> torch.Tensor:
 def _m2l_operators(tree: GridTree, order: int, k: int):
     """(offsets [nd, D], per-offset parity masks [nd, D, 2], stacked Kᵀ)
     of M2L, on the tree's device."""
-    dev = tree.pos_sorted.device
-    deltas = _v_list_deltas(tree.dim, k)
-    dl = torch.as_tensor(np.stack([d for d, _ in deltas]), device=dev)\
-        .to(torch.int64)
-    par_ok = torch.as_tensor(np.stack([p for _, p in deltas]), device=dev)
-    return dl, par_ok, _m2l_kernel_t(tree, order, deltas)
+    dl, par_ok, dl_local, nodes = _v_list_tables(
+        tree.dim, k, order, tree.pos_sorted.device)
+    return dl, par_ok, _m2l_kernel_t(tree, dl_local, nodes)
 
 
 def _m2l_level(tree: GridTree, w_l: torch.Tensor, ops, l: int,
                row0: int = 0, nrows: Optional[int] = None) -> torch.Tensor:
     """Level l's V-list transfers into cell rows [row0, row0 + nrows) (by
-    default every cell): local weights [nrows, n^D], not yet passed down."""
+    default every cell): local weights [nrows, n^D] in K's dtype (the
+    multipole weights cast to it), not yet passed down."""
     dim, L = tree.dim, tree.leaf_level
     dl, par_ok, KT = ops
+    w_l = w_l.to(KT.dtype)
     nD = w_l.shape[1]
     ncells = (1 << (dim * l)) - row0 if nrows is None else nrows
     xy = cell_coords(torch.arange(row0, row0 + ncells, device=w_l.device),
@@ -359,11 +440,11 @@ def _m2l(tree: GridTree, W: dict, order: int, k: int) -> dict:
             for l in range(2, tree.leaf_level + 1)}
 
 
-def _l2l(Lc: dict, m2m: torch.Tensor, L: int, nl: int,
-         like: torch.Tensor) -> torch.Tensor:
-    """Downward sweep: the leaf local weights [num_leaves, n^D]."""
+def _l2l(Lc: dict, m2m: torch.Tensor, L: int, nl: int) -> torch.Tensor:
+    """Downward sweep: the leaf local weights [num_leaves, n^D], with the
+    M2M operators ``m2m`` in the local dtype (transposed: L2L)."""
     if L < 2:
-        return like.new_zeros((nl, m2m.shape[1]))
+        return m2m.new_zeros((nl, m2m.shape[1]))
     for l in range(2, L):
         down = torch.einsum("pm,omn->pon", Lc[l], m2m)
         Lc[l + 1] = Lc[l + 1] + down.reshape(-1, m2m.shape[1])
@@ -375,18 +456,19 @@ def _l2p(tree: GridTree, L_leaf: torch.Tensor, order: int,
          b1: Optional[int] = None) -> torch.Tensor:
     """Far-field accelerations [b1 − b0, D] of sorted bodies [b0, b1) (by
     default all): the gradient of the leaf interpolant, in blocks of
-    ``_L2P_BLOCK`` bodies."""
-    dim = tree.dim
+    ``_L2P_BLOCK`` bodies, computed in the dtype of the local weights
+    ``L_leaf`` and of ``Tt``, written in the tree's."""
+    dim, ldt = tree.dim, L_leaf.dtype
     b1 = tree.n if b1 is None else b1
-    half = _leaf_half(tree)
+    half = _leaf_half(tree, ldt)
     centers = _cell_centers(tree, torch.arange(tree.num_leaf_cells,
-                                               device=L_leaf.device))
+                                               device=L_leaf.device), ldt)
     out = tree.pos_sorted.new_empty((b1 - b0, dim))
     for i0 in range(b0, b1, _L2P_BLOCK):
         sl = slice(i0, min(i0 + _L2P_BLOCK, b1))
         body_leaf = tree.leaf_ids[sl]
         lw = L_leaf[body_leaf]  # [B, n^D]
-        y = (tree.pos_sorted[sl] - centers[body_leaf]) / half
+        y = (tree.pos_sorted[sl].to(ldt) - centers[body_leaf]) / half
         s, ds = _interp_and_grad_1d(order, y, Tt)  # [B, D, n]
         s, ds = s.unbind(1), ds.unbind(1)
         out[i0 - b0:sl.stop - b0] = torch.stack([
@@ -408,6 +490,7 @@ def _near_sparse(tree: GridTree, chunks, chunk_size: int, k: int,
     for b0 in range(0, cell.numel(), cb):
         sl = slice(b0, b0 + cb)
         rows, _ = _chunk_rows(tree, cstart[sl], clen[sl], chunk_size)
+        count("fmm.reads")  # the batch's window table
         accs.append(near_field_windows(
             tree, cell[sl], rows[..., :dim], k=k, window=window,
             max_windows=max_windows, softening=softening, tlen=clen[sl]))
@@ -423,6 +506,7 @@ def _leaf_bodies(tree: GridTree, leaf0: int, nleaves: int):
     if leaf0 == 0 and nleaves == tree.num_leaf_cells:
         return 0, tree.n
     last = leaf0 + nleaves - 1
+    count("fmm.reads")
     b0, b1 = torch.stack([tree.cell_start[leaf0], tree.cell_start[last]
                           + tree.cell_count[last]]).tolist()
     return int(b0), int(b1)
@@ -442,8 +526,9 @@ def fmm_shard_partials(trees, mesh: Optional[Mesh] = None, order: int = 5,
     of the shards in ``shards`` (default all), each on its shard's device
     and zero outside its leaf chunk; their sum is the evaluation."""
     tree = trees[0]
+    dev = tree.pos_sorted.device
     if mesh is None:
-        mesh = Mesh((tree.pos_sorted.device,) * len(trees))
+        mesh = Mesh((dev,) * len(trees))
     p = mesh.num_shards
     dim, L, nl = tree.dim, tree.leaf_level, tree.num_leaf_cells
     dt = tree.pos_sorted.dtype
@@ -454,63 +539,71 @@ def fmm_shard_partials(trees, mesh: Optional[Mesh] = None, order: int = 5,
                          "clustered input another way")
     shards = range(p) if shards is None else shards
     spans = [shard_leaves(nl, r if p > 1 else None, p) for r in range(p)]
-    tables = mesh.per_device(lambda r: _tables(
-        dim, order, dt, trees[r].pos_sorted.device))
 
     # P2M of each shard's leaf chunk, then gather; M2M once per device.
-    if sparse:
-        chunks = _sparse_chunks(tree, num_chunks, chunk_size, leaf_batch)
-        W_leaf = [_p2m_sparse(tree, order, chunks, chunk_size,
-                              tables[0][0])]
-    else:
-        W_leaf = mesh.all_gather(mesh.per_shard(lambda r: _p2m_dense(
-            trees[r], order, leaf_batch, tables[r][0], *spans[r])))
-    W = mesh.per_device(lambda r: _m2m(W_leaf[r], tables[r][1], dim, L))
+    with span("fmm.upward", dev):
+        tables = mesh.per_device(lambda r: _side_tables(
+            dim, order, dt, trees[r].pos_sorted.device))
+        if sparse:
+            chunks = _sparse_chunks(tree, num_chunks, chunk_size, leaf_batch)
+            W_leaf = [_p2m_sparse(tree, order, chunks, chunk_size,
+                                  tables[0][0])]
+        else:
+            W_leaf = mesh.all_gather(mesh.per_shard(lambda r: _p2m_dense(
+                trees[r], order, _p2m_batch(tree, order), tables[r][0],
+                *spans[r])))
+        W = mesh.per_device(lambda r: _m2m(W_leaf[r], tables[r][1], dim, L))
 
     # M2L: a level of at least P cells by each shard's rows, then gather;
     # the coarser levels once per device.
     Lc = [dict() for _ in range(p)]
     if L >= 2 and "m2l" in _debug_skip:
         for r in range(p):
-            Lc[r] = {l: W[r][l].new_zeros(W[r][l].shape)
+            Lc[r] = {l: W[r][l].new_zeros(W[r][l].shape, dtype=_LOCAL_DTYPE)
                      for l in range(2, L + 1)}
     elif L >= 2:
-        ops = mesh.per_device(lambda r: _m2l_operators(trees[r], order,
-                                                       ring))
-        for l in range(2, L + 1):
-            ncells = 1 << (dim * l)
-            if p > 1 and ncells >= p:
-                mc = ncells // p
-                rows = mesh.all_gather(mesh.per_shard(lambda r: _m2l_level(
-                    trees[r], W[r][l], ops[r], l, r * mc, mc)))
-            else:
-                rows = mesh.per_device(lambda r: _m2l_level(
-                    trees[r], W[r][l], ops[r], l))
-            for r in range(p):
-                Lc[r][l] = rows[r]
-    L_leaf = mesh.per_device(lambda r: _l2l(Lc[r], tables[r][1], L, nl,
-                                            W_leaf[r]))
+        with span("fmm.m2l", dev):
+            ops = mesh.per_device(lambda r: _m2l_operators(trees[r], order,
+                                                           ring))
+            for l in range(2, L + 1):
+                ncells = 1 << (dim * l)
+                if p > 1 and ncells >= p:
+                    mc = ncells // p
+                    rows = mesh.all_gather(mesh.per_shard(
+                        lambda r: _m2l_level(trees[r], W[r][l], ops[r], l,
+                                             r * mc, mc)))
+                else:
+                    rows = mesh.per_device(lambda r: _m2l_level(
+                        trees[r], W[r][l], ops[r], l))
+                for r in range(p):
+                    Lc[r][l] = rows[r]
 
-    # L2P and P2P of each shard's leaf chunk.
+    # L2L once per device; L2P and P2P of each shard's leaf chunk.
+    with span("fmm.downward", dev):
+        L_leaf = mesh.per_device(lambda r: _l2l(Lc[r], tables[r][3], L, nl))
     out = []
     for r in shards:
         t, (leaf0, ml) = trees[r], spans[r]
+        tdev = t.pos_sorted.device
         with mesh.device_context(r):
-            if "l2p" in _debug_skip:
-                acc = t.pos_sorted.new_zeros((t.n, dim))
-            else:
-                b0, b1 = _leaf_bodies(t, leaf0, ml)
-                acc = _l2p(t, L_leaf[r], order, tables[r][0], b0, b1)
-                if b1 - b0 < t.n:  # zero rows around the shard's bodies
-                    acc = torch.nn.functional.pad(acc, (0, 0, b0, t.n - b1))
-            if "p2p" not in _debug_skip and sparse:
-                acc = acc + _near_sparse(t, chunks, chunk_size, ring, window,
-                                         max_windows, softening)
-            elif "p2p" not in _debug_skip:
-                acc = acc + _near_field_accel(
-                    t, ring, softening,
-                    _resolve_p2p_impl(p2p_impl, t.pos_sorted.device),
-                    leaf0, ml, leaf_batch)
+            with span("fmm.downward", tdev):
+                if "l2p" in _debug_skip:
+                    acc = t.pos_sorted.new_zeros((t.n, dim))
+                else:
+                    b0, b1 = _leaf_bodies(t, leaf0, ml)
+                    acc = _l2p(t, L_leaf[r], order, tables[r][2], b0, b1)
+                    if b1 - b0 < t.n:  # zero rows around the shard's bodies
+                        acc = torch.nn.functional.pad(
+                            acc, (0, 0, b0, t.n - b1))
+            with span("fmm.p2p", tdev):
+                if "p2p" not in _debug_skip and sparse:
+                    acc = acc + _near_sparse(t, chunks, chunk_size, ring,
+                                             window, max_windows, softening)
+                elif "p2p" not in _debug_skip:
+                    acc = acc + _near_field_accel(
+                        t, ring, softening,
+                        _resolve_p2p_impl(p2p_impl, tdev),
+                        leaf0, ml, leaf_batch)
         out.append(acc)
     return out
 
@@ -580,29 +673,35 @@ def fmm_forces(
     if leaf_level is None:
         leaf_level = auto_leaf_level(n, dim)
     sparse = layout == "sparse"
-    if capacity is None and not sparse:
-        capacity = compute_capacity(positions, leaf_level)
-        if layout == "auto" and dense_layout_degenerate(
-                capacity, n, leaf_level, dim):
-            sparse = True
-        else:
-            check_grid_capacity(capacity, n, leaf_level, dim, "fmm_forces")
     soft = float(config.softening)
+    with span("fmm.build", positions.device):
+        if capacity is None and not sparse:
+            count("fmm.reads")
+            capacity = compute_capacity(positions, leaf_level)
+            if layout == "auto" and dense_layout_degenerate(
+                    capacity, n, leaf_level, dim):
+                sparse = True
+            else:
+                check_grid_capacity(capacity, n, leaf_level, dim,
+                                    "fmm_forces")
+        if sparse:
+            from .sparse_grid import sparse_grid_stats
+            chunk_size, window = 64, 8
+            count("fmm.reads")
+            num_chunks, max_windows = sparse_grid_stats(
+                positions, leaf_level, chunk_size, window, ring)
+            tree = build_grid_tree(positions, masses, leaf_level, 8,
+                                   agg_num_chunks=num_chunks,
+                                   agg_chunk_size=chunk_size)
+        else:
+            p2p_impl = _resolve_p2p_impl(p2p_impl, positions.device)
+            tree = build_grid_tree(positions, masses, leaf_level, capacity)
     if sparse:
-        from .sparse_grid import sparse_grid_stats
-        chunk_size, window = 64, 8
-        num_chunks, max_windows = sparse_grid_stats(
-            positions, leaf_level, chunk_size, window, ring)
-        tree = build_grid_tree(positions, masses, leaf_level, 8,
-                               agg_num_chunks=num_chunks,
-                               agg_chunk_size=chunk_size)
         acc_sorted = fmm_accel_sorted(
             tree, order=order, ring=ring, softening=soft,
             leaf_batch=leaf_batch, num_chunks=num_chunks,
             chunk_size=chunk_size, window=window, max_windows=max_windows)
     else:
-        p2p_impl = _resolve_p2p_impl(p2p_impl, positions.device)
-        tree = build_grid_tree(positions, masses, leaf_level, capacity)
         acc_sorted = fmm_accel_sorted(
             tree, order=order, ring=ring, softening=soft,
             leaf_batch=leaf_batch, p2p_impl=p2p_impl)

@@ -465,7 +465,7 @@ def _fmm_shards(mesh: Mesh, chunks, *, k, softening, halo_cap, leaf_batch,
     c0 = chunks[0]
     dim, L, nl = c0.dim, c0.leaf_level, c0.num_leaf_cells
     fmm._check_matmul_precision(c0.pos_sorted)
-    tables = mesh.per_device(lambda r: fmm._tables(
+    tables = mesh.per_device(lambda r: fmm._side_tables(
         dim, order, c0.pos_sorted.dtype, chunks[r].pos_sorted.device))
 
     def p2m(r):
@@ -497,8 +497,7 @@ def _fmm_shards(mesh: Mesh, chunks, *, k, softening, halo_cap, leaf_batch,
                     chunks[r], W[r][l], ops[r], l))
             for r in range(p):
                 Lc[r][l] = rows[r]
-    L_leaf = mesh.per_device(lambda r: fmm._l2l(Lc[r], tables[r][1], L, nl,
-                                                W_leaf[r]))
+    L_leaf = mesh.per_device(lambda r: fmm._l2l(Lc[r], tables[r][3], L, nl))
 
     def l2p(r):
         # Invalid rows are pinned to their (clipped) leaf's centre: y = 0.
@@ -506,7 +505,7 @@ def _fmm_shards(mesh: Mesh, chunks, *, k, softening, halo_cap, leaf_batch,
         pinned = torch.where(c.valid[:, None], c.pos_sorted,
                              fmm._cell_centers(c, c.leaf_ids))
         return fmm._l2p(dataclasses.replace(c, pos_sorted=pinned),
-                        L_leaf[r], order, tables[r][0])
+                        L_leaf[r], order, tables[r][2])
 
     far = mesh.per_shard(l2p)
     near = _near_field(mesh, chunks, k=k, softening=softening,

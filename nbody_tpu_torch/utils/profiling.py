@@ -15,7 +15,9 @@ The reference's only instrumentation is a wall-clock wrapper per method
 * :func:`span` and :func:`count` — spans and counters at the program's own
   phase boundaries (``Simulation.run``'s steps, force calls and carried
   evaluations, the BVH's build, frontier walk, pass 2 and escalation
-  re-walks), off by default.
+  re-walks, the ring's per-card self blocks and tiles, the FMM's build,
+  upward pass, M2L, downward pass and near field with its host
+  read-backs), off by default.
   :func:`enable_spans` turns them on for the rest of the process; each span
   then adds its time to a module-level registry, on the device's clock: a
   new start and end CUDA event on the current stream of a CUDA device,

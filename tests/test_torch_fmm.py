@@ -210,6 +210,24 @@ def test_m2l_chunks_of_offsets_sum_alike(monkeypatch):
         _close(parts[l], m2l[l - 2])
 
 
+def test_p2m_and_l2p_batches_sum_alike(monkeypatch):
+    """Dense P2M by batches of leaves (``_P2M_ELEMS``) and L2P by blocks of
+    bodies (``_L2P_BLOCK``) equal one batch and one block, on every body
+    and on one shard's bodies."""
+    tree, _ = _case(3, 4)
+    kw = dict(order=4, softening=SOFT)
+    assert TF._p2m_batch(tree, 4) >= tree.num_leaf_cells
+    whole = TF.fmm_accel_sorted(tree, **kw)
+    shard = TF.fmm_accel_sorted(tree, shard_index=2, num_shards=4, **kw)
+    monkeypatch.setattr(TF, "_L2P_BLOCK", 97)
+    monkeypatch.setattr(TF, "_P2M_ELEMS", 5 * (tree.capacity // 8 + 1)
+                        * 8 * 4 ** 3)
+    assert TF._p2m_batch(tree, 4) == 5
+    _close(TF.fmm_accel_sorted(tree, **kw), whole, rtol=1e-13)
+    _close(TF.fmm_accel_sorted(tree, shard_index=2, num_shards=4, **kw),
+           shard, rtol=1e-13)
+
+
 @pytest.mark.parametrize("dim,n", [(2, 2000), (3, 1200)])
 def test_fmm_forces_matches_jax_f64(dim, n):
     pos, mass = _bodies(n, dim, seed=3 + dim)
@@ -236,6 +254,72 @@ def test_fmm_forces_matches_jax_f32():
 def _direct(pos, mass, cfg):
     return brute_force_direct(torch.from_numpy(pos), torch.from_numpy(mass),
                               cfg)
+
+
+def _tree_f64(tree):
+    """The same tree with every float field in float64."""
+    def f64(v):
+        if isinstance(v, tuple):
+            return tuple(f64(x) for x in v)
+        return v.double() if torch.is_tensor(v) and v.is_floating_point() \
+            else v
+    return dataclasses.replace(tree, **{
+        f.name: f64(getattr(tree, f.name)) for f in dataclasses.fields(tree)})
+
+
+@pytest.mark.parametrize("dim,order,n,level", [(3, 8, 2000, 2),
+                                               (2, 6, 4000, 3)])
+def test_fp32_far_field_matches_f64_far_field(dim, order, n, level):
+    """The fp32 tree's far field (P2M and M2M in fp32, the local side in
+    float64) against the f64 tree's, over the RMS force of the f64 FMM.
+    With an fp32 local side (the JAX package's arithmetic) these read
+    3.6e-5 to 5.3e-5 and 8.9e-7 to 1.1e-6, by the CPU's thread count:
+    L2P's cancellation. With the float64 local side 8.2e-8 and 2.9e-9,
+    the multipole side's fp32 rounding."""
+    pos, mass = (torch.from_numpy(a) for a in _bodies(n, dim, seed=40 + dim,
+                                                      dtype=np.float32))
+    tree = tg.build_grid_tree(pos, mass, level,
+                              tg.compute_capacity(pos, level))
+    t64 = _tree_f64(tree)
+    kw = dict(order=order, softening=SOFT)
+    far32 = TF.fmm_accel_sorted(tree, _debug_skip="p2p", **kw)
+    assert far32.dtype == torch.float32
+    far64 = TF.fmm_accel_sorted(t64, _debug_skip="p2p", **kw)
+    full64 = far64 + TF.fmm_accel_sorted(t64, _debug_skip="m2l,l2p", **kw)
+    rms = float(full64.norm(dim=-1).pow(2).mean().sqrt())
+    assert float((far32.double() - far64).norm(dim=-1).max()) / rms < 3e-7
+
+
+@pytest.mark.parametrize("layout", ["dense", "sparse"])
+def test_simulation_fmm_fp32_within_1e4_of_direct_sum(layout):
+    """Simulation("fmm") on fp32 bodies, one leapfrog step, its forces
+    against the f64 direct sum at the stepped positions: within 1e-4, the
+    deployment's bound. Uniform 2D bodies in reference units take the
+    dense layout (leaf level 3); 60% of 3000 3D bodies in one small ball
+    trip the dense guard, so the sparse layout serves them."""
+    if layout == "dense":
+        pos, mass = _bodies(4096, 2, seed=50, dtype=np.float32)
+        cfg = TGravity()
+    else:
+        pos, mass = (a.astype(np.float32) for a in _clustered(3000, 3,
+                                                                seed=51))
+        cfg = TGravity(G=1.0, softening=1e-4)
+    n, dim = pos.shape
+    probes = []
+    real = ts.sparse_grid_stats
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ts, "sparse_grid_stats",
+                   lambda *a: probes.append(a) or real(*a))
+        sim = Simulation.create(
+            system_from_numpy(pos, np.zeros_like(pos), mass, device="cpu",
+                              dtype=torch.float32), cfg, method="fmm")\
+            .run(steps=1, dt=1e-2)
+        got = sim.forces()
+    assert got.dtype == torch.float32
+    assert bool(probes) == (layout == "sparse")
+    x1 = sim.system.positions.double().numpy()
+    want = _direct(x1, mass.astype(np.float64), cfg)
+    assert _err(got, want) < 1e-4
 
 
 @pytest.mark.parametrize("n", [512, 1200])

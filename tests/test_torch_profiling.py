@@ -2,8 +2,8 @@
 CPU: PhaseTimer (perf_counter on the CPU; CUDA events only on a card),
 trace() as a no-op and as a torch.profiler Chrome trace, the FMM's
 three-phase breakdown (the phases of tests/test_profiling.py), and the
-program's spans and counters: off by default, on in the BVH's phases,
-named in a Chrome trace, never changing a result."""
+program's spans and counters: off by default, on in the BVH's and the
+FMM's phases, named in a Chrome trace, never changing a result."""
 
 import json
 import time
@@ -168,6 +168,39 @@ def test_bvh_span_names_in_a_chrome_trace(spans, tmp_path):
     sim.run(steps=1, dt=1e-3)
     assert spans.span_totals(outside_profiler=True)["sim.step"][1] == 1
     assert spans.span_totals()["sim.step"][1] == 2
+
+
+FMM_SPANS = {"fmm.build", "fmm.upward", "fmm.m2l", "fmm.downward",
+             "fmm.p2p"}
+
+
+@pytest.mark.parametrize("layout", ["dense", "sparse"])
+def test_fmm_spans_and_reads(spans, layout):
+    """Each FMM phase's span once a call (``fmm.downward`` twice: L2L,
+    then L2P), the counter ``fmm.reads`` at the call's host read-backs
+    (the capacity scan; on the sparse layout the grid's sizes and each
+    chunk batch's window table), and the same bits with spans on and
+    off."""
+    from nbody_tpu_torch.ops import fmm, sparse_grid
+    pos, mass = _clustered(3000, 0.6 if layout == "sparse" else 0.0,
+                           seed=4)
+    pos, mass = pos.float(), mass.float()
+    off = fmm.fmm_forces(pos, mass, UNIT, order=4)
+    assert spans.span_totals() == {} and spans.counter_totals() == {}
+    spans.enable_spans()
+    on = fmm.fmm_forces(pos, mass, UNIT, order=4)
+    assert torch.equal(on, off)
+    totals = spans.span_totals()
+    assert set(totals) == FMM_SPANS
+    assert {k: c for k, (_, c) in totals.items()} == {
+        "fmm.build": 1, "fmm.upward": 1, "fmm.m2l": 1, "fmm.downward": 2,
+        "fmm.p2p": 1}
+    assert all(t >= 0 for t, _ in totals.values())
+    reads = 1
+    if layout == "sparse":
+        num_chunks, _ = sparse_grid.sparse_grid_stats(pos, 2, 64, 8, 1)
+        reads += 1 + -(-num_chunks // min(1024, 128, num_chunks))
+    assert spans.counter_totals() == {"fmm.reads": reads}
 
 
 def test_spans_nest_and_reset(spans):
