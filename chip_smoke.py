@@ -201,7 +201,7 @@ FMM_REFERENCE_S = {
 # so fp32 errors of the local weights w and of that sum come out at a few
 # ulps of the term sum, not of the force. Worst case, in fp32 ulps of the
 # term sum: the T_k recurrence to k = 7 about 7, the basis products 3, the
-# M2L / L2L sums of 316 x 512 terms up to 17 (pairwise), the L2P sum of 512
+# M2L / L2L sums of 189 x 512 terms up to 17 (pairwise), the L2P sum of 512
 # terms 9: about 36. On the CPU (fp32 against f64, same tree, uniform
 # bodies at 1e5 2D L5, 2e4 3D L2-L3 and 1e5 3D L3;
 # crosscheck/fmm_fp32_floor.py) the largest body read 1.9-6.1. Each body's far field is held to 32 ulps of its own term sum,
@@ -1098,8 +1098,10 @@ def fmm_phase_times(fm, gt, cuda_p2p, pos, mass, cfg, order) -> dict:
     W = fm._m2m(fm._p2m_dense(tree, order, 1024, Tt), m2m, dim, L)
     Lc = fm._m2l(tree, W, order, 1)
     nD = order ** dim
-    m2l_flops = sum(2 * (1 << (dim * l)) * len(fm._v_list_deltas(dim, 1))
-                    * nD * nD for l in range(2, L + 1))
+    # The products M2L makes: each cell's parity class's offsets.
+    per_cell = fm._v_list_tables(dim, 1, order, pos.device)[1].shape[1]
+    m2l_flops = sum(2 * (1 << (dim * l)) * per_cell * nD * nD
+                    for l in range(2, L + 1))
     row = {
         "eval": time_ms(lambda: fm.fmm_forces(pos, mass, cfg, order=order)),
         "build": time_ms(lambda: gt.build_grid_tree(

@@ -15,7 +15,8 @@ phases, each a dense batched product:
 
 V-lists follow the grid tree's telescoping rings: per-level offsets whose
 membership depends on a cell's parity in its parent, held as static
-per-offset parity masks.
+per-offset parity masks, from which each parity class takes its own
+offsets.
 
 What differs from the JAX package, and why:
 
@@ -23,11 +24,20 @@ What differs from the JAX package, and why:
   :func:`fmm_forces`; ``lax.map`` over leaf batches, chunk batches and L2P
   blocks is a Python loop over the same batches and blocks, without the
   JAX package's pad rows (they add nothing).
-* M2L sums over offsets by chunks of offsets: the gathered source weights
-  of a chunk are laid side by side along the feature axis and multiplied
-  once against the stacked Kᵀ_δ, so the matmul does the sum over δ. Each
-  gathered chunk is at most ``_M2L_GATHER_BYTES``. K is built once at leaf
-  scale; a coarser level scales the product by 2^−(L−l), which is exact.
+* M2L by parity class. A cell's V-list depends only on its parity in its
+  parent, the low D bits of its Morton id: a cell of class q takes offset
+  δ only where |⌊(q_d + δ_d)/2⌋| ≤ k in every dimension, 189 of the ring's
+  316 offsets in 3D and 27 of 40 in 2D at k = 1. The JAX package
+  multiplies every offset for every cell and zeroes the products a cell's
+  parity excludes; here each class multiplies only its own offsets. The
+  (target, source) terms are the same; the order of the sums differs. The
+  2^D classes are one batched product over chunks of offsets: a class's
+  gathered source weights of a chunk lie side by side along the feature
+  axis against that class's stacked Kᵀ_δ, so the matmul does the sum over
+  δ. An offset that leaves the grid reads a zero row appended to the
+  level's weights. Each gathered chunk is at most ``_M2L_GATHER_BYTES``. K
+  is built once at leaf scale; a coarser level scales the product by
+  2^−(L−l), which is exact.
 * The dense P2P is one call to ``grid_tree._near_field_accel`` over every
   leaf, which returns sorted order: under ``p2p_impl="auto"`` one launch of
   the hand-written kernel K6 (``ops/cuda_p2p.near_field_cuda``) for an fp32
@@ -73,7 +83,8 @@ Spans (:mod:`..utils.profiling`, off by default), on the tree's device:
 every level), ``fmm.downward`` (L2L and L2P), ``fmm.p2p`` (the near field);
 counter ``fmm.reads``, each host read-back of a call (the capacity, the
 sparse grid's sizes, each chunk batch's window table, a shard's body
-range).
+range); counter ``fmm.m2l_products``, the (target cell, offset) operator
+products M2L makes.
 """
 
 from __future__ import annotations
@@ -360,18 +371,26 @@ def _m2m(W_leaf: torch.Tensor, m2m: torch.Tensor, dim: int, L: int) -> dict:
 
 @functools.lru_cache(maxsize=None)
 def _v_list_tables(dim: int, k: int, order: int, device: torch.device):
-    """M2L's static tables on ``device``: (offsets [nd, D] int64, per-offset
-    parity masks [nd, D, 2], the offsets and the tensor nodes [n^D, D] in
-    the local dtype). Built once for each (dim, k, order, device) and
-    shared by every caller, so read only: a copy from the host would wait
-    on the device's stream in every evaluation."""
+    """M2L's static tables on ``device``: (the ring's offsets [nd, D] in the
+    local dtype, each parity class's offsets [2^D, nc, D] int64 and their
+    rows in the ring's [2^D, nc], the tensor nodes [n^D, D] in the local
+    dtype). Class q holds the cells whose Morton ids end in the D bits q;
+    it takes the offsets whose parity masks admit its parity in every
+    dimension, as many for each class by symmetry. Built once for each
+    (dim, k, order, device) and shared by every caller, so read only: a
+    copy from the host would wait on the device's stream in every
+    evaluation."""
     deltas = _v_list_deltas(dim, k)
-    dl = torch.as_tensor(np.stack([d for d, _ in deltas]),
-                         device=device).to(torch.int64)
-    par_ok = torch.as_tensor(np.stack([p for _, p in deltas]), device=device)
+    dl = np.stack([d for d, _ in deltas])
+    par_ok = np.stack([p for _, p in deltas])  # [nd, D, 2]
+    parity = cell_coords(torch.arange(1 << dim), dim).numpy()  # [2^D, D]
+    rows = np.stack([np.flatnonzero(par_ok[:, np.arange(dim), q].all(-1))
+                     for q in parity])
     nodes = torch.as_tensor(_tensor_nodes(dim, order), dtype=_LOCAL_DTYPE,
                             device=device)
-    return dl, par_ok, dl.to(_LOCAL_DTYPE), nodes
+    return (torch.as_tensor(dl, dtype=_LOCAL_DTYPE, device=device),
+            torch.as_tensor(dl[rows], dtype=torch.int64, device=device),
+            torch.as_tensor(rows, dtype=torch.int64, device=device), nodes)
 
 
 def _m2l_kernel_t(tree: GridTree, dl: torch.Tensor,
@@ -393,41 +412,55 @@ def _m2l_kernel_t(tree: GridTree, dl: torch.Tensor,
 
 
 def _m2l_operators(tree: GridTree, order: int, k: int):
-    """(offsets [nd, D], per-offset parity masks [nd, D, 2], stacked Kᵀ)
-    of M2L, on the tree's device."""
-    dl, par_ok, dl_local, nodes = _v_list_tables(
+    """(each parity class's offsets [2^D, nc, D], its stacked Kᵀ
+    [2^D, nc·n^D, n^D]) of M2L, on the tree's device: K of the ring's
+    offsets, then each class's rows of it by index (at order 8 in 3D the
+    classes' rows take 3.2 GB, the ring's K 0.66 GB)."""
+    dl_local, cls_dl, cls_rows, nodes = _v_list_tables(
         tree.dim, k, order, tree.pos_sorted.device)
-    return dl, par_ok, _m2l_kernel_t(tree, dl_local, nodes)
+    nD = nodes.shape[0]
+    KT = _m2l_kernel_t(tree, dl_local, nodes).view(-1, nD, nD)
+    return cls_dl, KT[cls_rows].view(cls_rows.shape[0], -1, nD)
 
 
 def _m2l_level(tree: GridTree, w_l: torch.Tensor, ops, l: int,
                row0: int = 0, nrows: Optional[int] = None) -> torch.Tensor:
     """Level l's V-list transfers into cell rows [row0, row0 + nrows) (by
     default every cell): local weights [nrows, n^D] in K's dtype (the
-    multipole weights cast to it), not yet passed down."""
+    multipole weights cast to it), not yet passed down.
+
+    By parity class (the module docstring): the rows are covered by whole
+    blocks of 2^D consecutive ids, taken class-major, so a row's class is
+    its id's low D bits wherever the range starts; the cover's rows outside
+    the range (at most 2^D − 1 at each end) are computed and dropped. Each
+    chunk of offsets is one product batched over the classes."""
     dim, L = tree.dim, tree.leaf_level
-    dl, par_ok, KT = ops
-    w_l = w_l.to(KT.dtype)
-    nD = w_l.shape[1]
+    dq, KT = ops
+    ncls, nq = dq.shape[:2]
+    nD = KT.shape[-1]
     ncells = (1 << (dim * l)) - row0 if nrows is None else nrows
-    xy = cell_coords(torch.arange(row0, row0 + ncells, device=w_l.device),
-                     dim)
-    parity = xy & 1
-    acc = w_l.new_zeros((ncells, nD))
-    nd = dl.shape[0]
-    step = max(1, min(nd, _M2L_GATHER_BYTES
-                      // (ncells * nD * KT.element_size())))
-    for j0 in range(0, nd, step):
-        j1 = min(j0 + step, nd)
-        src_xy = xy[:, None, :] + dl[None, j0:j1, :]  # [cells, c, D]
-        ok = _in_bounds(src_xy, l)
-        for d in range(dim):
-            ok &= par_ok[j0:j1, d, :].T[parity[:, d]]
-        g = w_l[_clipped_ids(src_xy, l, dim, (ncells, -1))]
-        g.mul_(ok[..., None])
-        acc += g.reshape(ncells, -1) @ KT[j0 * nD:j1 * nD]
-        del g
-    return acc.mul_(2.0 ** -(L - l))  # K_l = K_L·2^-(L-l), exact
+    c0 = row0 - row0 % ncls
+    m = -(-(row0 + ncells - c0) // ncls)  # cells a class in the cover
+    xy = cell_coords(torch.arange(c0, c0 + m * ncls, device=w_l.device),
+                     dim).view(m, ncls, dim).transpose(0, 1)  # [2^D, m, D]
+    # The level's weights and a zero row, read by offsets off the grid.
+    zero = w_l.shape[0]
+    w = w_l.new_zeros((zero + 1, nD), dtype=KT.dtype)
+    w[:zero] = w_l
+    # Transposed, [2^D, n^D, m]: cuBLAS's fp64 product of this order ran
+    # 57 TFLOP/s at leaf level 5 in 3D on an H100, the other order 50.
+    acc = w.new_zeros((ncls, nD, m))
+    scale = 2.0 ** -(L - l)  # K_l = K_L·2^-(L-l), exact
+    step = max(1, min(nq, _M2L_GATHER_BYTES
+                      // (ncls * m * nD * KT.element_size())))
+    for j0 in range(0, nq, step):
+        src = xy[:, :, None, :] + dq[:, None, j0:j0 + step, :]
+        ids = torch.where(_in_bounds(src, l),
+                          _clipped_ids(src, l, dim, src.shape[:-1]), zero)
+        acc.baddbmm_(KT[:, j0 * nD:(j0 + step) * nD].transpose(1, 2),
+                     w[ids].view(ncls, m, -1).transpose(1, 2), alpha=scale)
+    count("fmm.m2l_products", ncls * m * nq)
+    return acc.permute(2, 0, 1).reshape(-1, nD)[row0 - c0:row0 - c0 + ncells]
 
 
 def _m2l(tree: GridTree, W: dict, order: int, k: int) -> dict:

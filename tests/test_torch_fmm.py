@@ -37,6 +37,7 @@ from nbody_tpu_torch.ops import sparse_grid as ts
 from nbody_tpu_torch.ops.brute_force import brute_force_direct
 from nbody_tpu_torch.simulation import Simulation
 from nbody_tpu_torch.state import system_from_numpy
+from nbody_tpu_torch.utils import profiling
 from nbody_tpu_torch.utils.accuracy import scale_normalized_error
 
 # Several test processes share the machine's cores: a few torch threads
@@ -208,6 +209,96 @@ def test_m2l_chunks_of_offsets_sum_alike(monkeypatch):
     for l in whole:
         _close(parts[l], whole[l], rtol=1e-13)
         _close(parts[l], m2l[l - 2])
+
+
+def _masked_m2l_level(tree, w_l, order, l, row0=0, nrows=None):
+    """The JAX package's masked M2L of rows [row0, row0 + nrows) at ring 1:
+    every offset of the ring for every cell, the products that a cell's
+    parity excludes or that leave the grid multiplied by zero."""
+    dim, L = tree.dim, tree.leaf_level
+    deltas = TF._v_list_deltas(dim, 1)
+    dl = torch.as_tensor(np.stack([d for d, _ in deltas])).long()
+    par_ok = torch.as_tensor(np.stack([p for _, p in deltas]))
+    nodes = torch.as_tensor(TF._tensor_nodes(dim, order))
+    KT = TF._m2l_kernel_t(tree, dl.double(), nodes)
+    ncells = (1 << (dim * l)) - row0 if nrows is None else nrows
+    xy = tg.cell_coords(torch.arange(row0, row0 + ncells), dim)
+    src = xy[:, None, :] + dl[None]
+    ok = tg._in_bounds(src, l)
+    for d in range(dim):
+        ok &= par_ok[:, d, :].T[xy[:, d] & 1]
+    g = w_l.double()[tg._clipped_ids(src, l, dim, (ncells, -1))]
+    return (g * ok[..., None]).reshape(ncells, -1) @ KT * 2.0 ** -(L - l)
+
+
+def _upward(dim, order):
+    tree, _ = _case(dim, order)
+    Tt, m2m = _tables(tree, order)
+    return tree, TF._m2m(TF._p2m_dense(tree, order, 1024, Tt), m2m, dim,
+                         tree.leaf_level)
+
+
+@pytest.mark.parametrize("dim,order", sorted(_CASES))
+def test_m2l_by_class_equals_masked_sum(dim, order):
+    """Each parity class's own offsets give the masked sum over every
+    offset, to 1e-12 of the largest local weight, at every level: over the
+    whole level, an aligned row range and unaligned ones (2D, P = 8 shards
+    at level 2: rows [2r, 2r + 2))."""
+    tree, W = _upward(dim, order)
+    ops = TF._m2l_operators(tree, order, 1)
+    for l in range(2, tree.leaf_level + 1):
+        want = _masked_m2l_level(tree, W[l], order, l)
+        tol = 1e-12 * float(want.abs().max())
+        ncells, ncls = want.shape[0], 1 << dim
+        ranges = [(0, None), (ncells // 4, ncells // 4),  # aligned
+                  (ncls + 1, 2 * ncls + 3), (ncells - 3, 3)]
+        if dim == 2 and l == 2:
+            ranges += [(2 * r, 2) for r in range(8)]
+        for row0, nrows in ranges:
+            have = TF._m2l_level(tree, W[l], ops, l, row0, nrows)
+            sl = slice(row0, None if nrows is None else row0 + nrows)
+            assert have.shape == want[sl].shape
+            assert float((have - want[sl]).abs().max()) <= tol, (l, row0)
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_m2l_counts_its_products_and_class_tables(dim):
+    """Each class's table holds exactly the ring's offsets whose parity
+    masks admit it, 27 (2D) or 189 (3D) of 40 or 316, and the classes
+    together hold them all; with spans on, ``fmm.m2l_products`` counts
+    Σ_l cells_l × that; with spans off, nothing is counted and the weights
+    are the same bits."""
+    deltas = TF._v_list_deltas(dim, 1)
+    _, cls_dl, cls_rows, _ = TF._v_list_tables(dim, 1, 4,
+                                                torch.device("cpu"))
+    nc = {2: 27, 3: 189}[dim]
+    assert tuple(cls_rows.shape) == (1 << dim, nc)
+    for q in range(1 << dim):
+        parity = tg.cell_coords(torch.tensor([q]), dim)[0].tolist()
+        admits = [j for j, (_, ok) in enumerate(deltas)
+                  if all(ok[d, parity[d]] for d in range(dim))]
+        assert cls_rows[q].tolist() == admits
+        np.testing.assert_array_equal(
+            cls_dl[q].numpy(), np.stack([deltas[j][0] for j in admits]))
+    assert sorted(set(cls_rows.flatten().tolist())) == list(
+        range(len(deltas)))
+
+    tree, W = _upward(dim, 4)
+    profiling.reset_spans()
+    try:
+        profiling.enable_spans()
+        on = TF._m2l(tree, W, 4, 1)
+        assert profiling.counter_totals() == {"fmm.m2l_products": sum(
+            (1 << (dim * l)) * nc for l in range(2, tree.leaf_level + 1))}
+        profiling.reset_spans()
+        off = TF._m2l(tree, W, 4, 1)
+        assert profiling.counter_totals() == {}
+        assert profiling.span_totals() == {}
+    finally:
+        profiling.reset_spans()
+    assert sorted(on) == sorted(off)
+    for l in on:
+        assert torch.equal(on[l], off[l])
 
 
 def test_p2m_and_l2p_batches_sum_alike(monkeypatch):

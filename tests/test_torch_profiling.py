@@ -179,8 +179,9 @@ def test_fmm_spans_and_reads(spans, layout):
     """Each FMM phase's span once a call (``fmm.downward`` twice: L2L,
     then L2P), the counter ``fmm.reads`` at the call's host read-backs
     (the capacity scan; on the sparse layout the grid's sizes and each
-    chunk batch's window table), and the same bits with spans on and
-    off."""
+    chunk batch's window table), the counter ``fmm.m2l_products`` at
+    M2L's products (the 64 cells of leaf level 2, each with its parity
+    class's 189 offsets), and the same bits with spans on and off."""
     from nbody_tpu_torch.ops import fmm, sparse_grid
     pos, mass = _clustered(3000, 0.6 if layout == "sparse" else 0.0,
                            seed=4)
@@ -200,7 +201,8 @@ def test_fmm_spans_and_reads(spans, layout):
     if layout == "sparse":
         num_chunks, _ = sparse_grid.sparse_grid_stats(pos, 2, 64, 8, 1)
         reads += 1 + -(-num_chunks // min(1024, 128, num_chunks))
-    assert spans.counter_totals() == {"fmm.reads": reads}
+    assert spans.counter_totals() == {"fmm.reads": reads,
+                                      "fmm.m2l_products": 64 * 189}
 
 
 def test_spans_nest_and_reset(spans):
