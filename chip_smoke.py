@@ -1326,9 +1326,13 @@ def phase_fmm(cb, gen, dev, default, smi) -> dict:
 
 def phase_sparse(cb, gen, dev, default, smi) -> dict:
     """[15] The sparse grid on the clustered input the dense grid refuses:
-    Barnes-Hut theta = 0.25 and FMM under layout="auto" take their sparse
-    layouts (no K6 launch), against the f64 oracle; then the sparse
-    Barnes-Hut layout beside the dense one on uniform bodies."""
+    Barnes-Hut theta = 0.25 under layout="auto" takes its sparse layout (no
+    K6 launch) and the FMM its occupied-cell layout (one launch of K6's
+    occupied-leaf entry), against the f64 oracle; K6's occupied-leaf entry
+    alone against its plain version on the FMM's tree at leaf level 10 and
+    on the same bodies with a collapsed core (one leaf of thousands of
+    bodies); then the sparse Barnes-Hut layout beside the dense one on
+    uniform bodies."""
     from nbody_tpu_torch import GravityConfig
     from nbody_tpu_torch.config import FMM_ORDER
     from nbody_tpu_torch.ops import fmm as fm, grid_tree as gt
@@ -1348,6 +1352,7 @@ def phase_sparse(cb, gen, dev, default, smi) -> dict:
     out = {}
     calls = []
     real_bh, real_stats = sg.barnes_hut_sparse, sg.sparse_grid_stats
+    real_occ = sg.build_occupied_tree
 
     def bh_counted(*a, **k):
         calls.append("barnes_hut_sparse")
@@ -1357,39 +1362,50 @@ def phase_sparse(cb, gen, dev, default, smi) -> dict:
         calls.append("sparse_grid_stats")
         return real_stats(*a, **k)
 
+    def occ_counted(*a, **k):
+        calls.append("build_occupied_tree")
+        return real_occ(*a, **k)
+
     rp = gt.resolve_bh_params(n, 3, 0.25)
-    for name, fn, L, tol in (
+    for name, fn, L, tol, route, launches in (
             ("barnes_hut_grid theta=0.25", lambda: gt.barnes_hut_grid(
-                pos, mass, cfg, theta=0.25), rp["leaf_level"], SPARSE_BH_TOL),
+                pos, mass, cfg, theta=0.25), rp["leaf_level"], SPARSE_BH_TOL,
+             "sparse_grid_stats", {"near_field": 0, "p2p_leaf": 0}),
             (f"fmm_forces order={FMM_ORDER}", lambda: fm.fmm_forces(
                 pos, mass, cfg, order=FMM_ORDER), gt.auto_leaf_level(n, 3),
-             FMM_GATE)):
+             FMM_GATE, "build_occupied_tree",
+             {"near_field": 0, "p2p_leaf": 0, "near_field_occupied": 1})):
         cap = gt.compute_capacity(pos, L)
         if not gt.dense_layout_degenerate(cap, n, L, 3):
             raise AssertionError(f"{name}: capacity {cap} at L={L} is not "
                                  "degenerate")
         calls.clear()
         sg.barnes_hut_sparse, sg.sparse_grid_stats = bh_counted, stats_counted
+        sg.build_occupied_tree = occ_counted
         reset_launches()
         try:
             got = fn()
             torch.cuda.synchronize()
         finally:
             sg.barnes_hut_sparse, sg.sparse_grid_stats = real_bh, real_stats
+            sg.build_occupied_tree = real_occ
         print(f"    {name}: leaf level {L}, densest leaf {cap} bodies; "
-              f"sparse calls {calls}")
-        if "sparse_grid_stats" not in calls:
-            raise AssertionError(f"{name} did not take the sparse layout")
-        expect_launches(name, counts(), {"near_field": 0, "p2p_leaf": 0})
+              f"layout calls {calls}")
+        if route not in calls:
+            raise AssertionError(f"{name} did not call {route}")
+        expect_launches(name, counts(), launches)
+        out["occupied_launches"] = out.get("occupied_launches", 0) + counts()[
+            "near_field_occupied"]
         err = check_close(f"{name} vs f64 oracle, {rows.numel()} sampled "
                           "rows", got[rows], want, tol=tol)
         ms = time_ms(fn)
         print(f"    {name}: {ms:.3f} ms an evaluation (capacity probe and "
-              f"sparse_grid_stats included; CUDA events, 1 warm-up, median of "
+              f"{route}'s probe included; CUDA events, 1 warm-up, median of "
               f"3), {smi}")
         out[name] = {"ms": ms, "max_abs_err": err, "err": float(
             scale_normalized_error(got[rows].double(), want))}
         del got
+    out["k6_occupied"] = occupied_k6_check(pos, mass, cfg, smi)
     del bodies, pos, mass
 
     n, dim = SPARSE_UNIFORM
@@ -1406,6 +1422,64 @@ def phase_sparse(cb, gen, dev, default, smi) -> dict:
           f"dense {t['dense']:.3f} ms, sparse {t['sparse']:.3f} ms; sparse "
           f"vs dense {diff:.3e} (both fp32; printed), {smi}")
     out["uniform_1e6_2d"] = dict(t, diff=diff)
+    return out
+
+
+def occupied_k6_check(pos, mass, cfg, smi) -> dict:
+    """[15]'s check of K6's occupied-leaf entry (``near_field_occupied_cuda``,
+    one launch) against its plain version on the same tree in f64, at
+    ``K6_ULPS``: on the Plummer bodies' tree at leaf level 10 (the FMM
+    cell's), and on the same bodies with their 5,000 innermost moved into
+    one leaf of that level, as the cell's cold core collapses. Each with
+    its real pairs, its time (the entry, wrapper included; CUDA events, 1
+    warm-up, median of 3) and the bound of 21 operations a pair at the
+    fp32 peak."""
+    import dataclasses
+    from nbody_tpu_torch.ops import cuda_p2p, grid_tree as gt
+    from nbody_tpu_torch.ops import sparse_grid as sg
+    n, dim = pos.shape
+    level = 10
+    lo, hi = gt.domain_bounds(pos)
+    side = (hi - lo) / (1 << level)
+    core = pos.norm(dim=-1).argsort()[:5000]
+    mid = pos[core].mean(0)
+    center = lo + (torch.floor((mid - lo) / side) + 0.5) * side
+    spread = (pos[core] - mid).abs().max()
+    collapsed = pos.clone()
+    collapsed[core] = center + (pos[core] - mid) * (0.25 * side.min()
+                                                    / spread)
+    out = {}
+    for name, p in (("plummer_L10", pos), ("collapsed_L10", collapsed)):
+        t32 = sg.build_occupied_tree(p, mass, level)
+        t64 = dataclasses.replace(t32, **{
+            f.name: getattr(t32, f.name).double()
+            for f in dataclasses.fields(t32)
+            if torch.is_tensor(getattr(t32, f.name))
+            and getattr(t32, f.name).is_floating_point()})
+        table = sg.occupied_ring_table(t32, 1)
+        fullest = int(t32.leaf_count.max())
+        if name == "collapsed_L10" and fullest <= 1000:
+            raise AssertionError(f"{name}: fullest leaf {fullest} bodies")
+        reset_launches()
+        got = cuda_p2p.near_field_occupied_cuda(t32, table, cfg.softening)
+        torch.cuda.synchronize()
+        expect_launches(name, counts(), {"near_field_occupied": 1,
+                                         "near_field": 0, "p2p_leaf": 0})
+        want = cuda_p2p.near_field_occupied_plain(t64, table, cfg.softening)
+        err = check_close(f"K6 occupied-leaf entry, {name} ({t32.num_leaves}"
+                          f" leaves, fullest {fullest}) vs f64 plain",
+                          got, want,
+                          tol=max(1e-5, fp32_floor(want, K6_ULPS)))
+        pairs = int(sg.occupied_ring_pairs(t32, table))
+        ms = time_ms(lambda: cuda_p2p.near_field_occupied_cuda(
+            t32, table, cfg.softening))
+        b = bound(21 * pairs, n * (16 + 4 * dim) + table.numel() * 8, pairs)
+        print(f"    K6 occupied-leaf entry, {name}: {ms:.3f} ms, {pairs} real "
+              f"pairs, bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
+              f"{smi}")
+        out[name] = {"ms": ms, "max_abs_err": err, "real_pairs": pairs,
+                     "fullest_leaf": fullest, "leaves": t32.num_leaves, **b}
+        del got, want, t32, t64, table
     return out
 
 
@@ -2586,7 +2660,7 @@ def phase_probes(smi) -> dict:
 
 
 def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, fmm, pr,
-                 ptxas, multi, entry, probes) -> list:
+                 ptxas, multi, entry, probes, sparse) -> list:
     """The kernels JSON line: every kernel with its launches on its path,
     its error against its plain version, its times and its bound; K2, K3
     and K6 also with their launches on [17]'s multi-device paths (the
@@ -2724,6 +2798,7 @@ def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, fmm, pr,
          "fmm_real_pairs_by_shape": {key: row["k6_pairs"]
                                      for key, row in fmm["times"].items()},
          **bounds["K6"], "library_ms": None},
+        k6_occupied_row(sparse, entry_launches, probe_launches),
         {"name": "P rate probe (dependent op loop)", "route": "cuda",
          "source": "nbody_tpu_torch/csrc/rate_probe.cu",
          "replaces": "tools/vpu_microbench.py:36",
@@ -2758,6 +2833,29 @@ def kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh, fmm, pr,
          **p_bounds[128], "library_ms": mm[128]["library_ms"]},
     ]
     return kernels
+
+
+def k6_occupied_row(sparse, entry_launches, probe_launches) -> dict:
+    """The kernels line's row of K6's occupied-leaf entry, from [15]: its
+    launches on the FMM's path, its error against its plain version, its
+    time and bound on the Plummer tree at leaf level 10, the same on the
+    collapsed core."""
+    occ = sparse["k6_occupied"]["plummer_L10"]
+    return {
+        "name": "K6 occupied-leaf entry (the FMM's occupied-cell layout)",
+        "route": "cuda", "source": "nbody_tpu_torch/csrc/p2p_leaf.cu",
+        "replaces": "nbody_tpu/ops/pallas_p2p.py:30",
+        "launches": sparse["occupied_launches"],
+        "max_abs_err": occ["max_abs_err"], "ms": occ["ms"],
+        "plain_ms": None, "real_pairs": occ["real_pairs"],
+        "timed_at": "one launch, wrapper included, on [15]'s Plummer 1e5 3D "
+                    "tree at leaf level 10, fp32",
+        "ops_per_pair": 21,
+        "collapsed_L10": sparse["k6_occupied"]["collapsed_L10"],
+        "entry_launches": entry_launches.get("near_field_occupied", 0),
+        "probe_launches": probe_launches.get("near_field_occupied", 0),
+        **{k: occ[k] for k in ("bound_ms", "bound_by", "mufu_bound_ms")},
+        "library_ms": None}
 
 
 def multi_line(multi, smi) -> dict:
@@ -2978,7 +3076,7 @@ def main() -> int:
     probes = phase_probes(smi)
 
     kernels = kernels_line(t, launches, k1_err, k2_err, k3, k4, k5, k6, bh,
-                           fmm, pr, ptxas, multi, entry, probes)
+                           fmm, pr, ptxas, multi, entry, probes, sparse)
     print(f"chip_smoke: phases [1]-[20] in {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"multi_device": multi_line(multi, smi)}))
     print(json.dumps({"harness": harness}))

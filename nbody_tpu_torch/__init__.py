@@ -9,7 +9,8 @@ tier (``ops/grid_tree.py`` with ``ops/hier_far.py`` and
 ``ops/local_expansion.py``) runs its leaf near field on a sixth kernel
 (``ops/cuda_p2p.py``), and so does the black-box FMM tier (``ops/fmm.py``);
 clustered inputs go to the sparse grid (``ops/sparse_grid.py``) under
-``layout="auto"``. The Hilbert radix BVH tier (``ops/bvh.py``) builds its
+``layout="auto"``: the Barnes-Hut tier to its windowed layout, the FMM to
+its occupied-cell tree. The Hilbert radix BVH tier (``ops/bvh.py``) builds its
 tree and walks it in plain torch. ``tools/microbench.py`` probes the card's
 rates. The multi-device tiers (``parallel/``: the ring brute force on K2
 and K3, the sharded Barnes-Hut, FMM and BVH, and the body-sharded LET

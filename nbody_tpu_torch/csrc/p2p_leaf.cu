@@ -9,7 +9,7 @@
 // source. Not scaled by G. fp32 chains of at most kChain = 32 terms, folded
 // into fp64 totals.
 //
-// Two entries share one pair loop, warp_near_sums, templated over the
+// Three entries share one pair loop, warp_near_sums, templated over the
 // "source runs" it streams (contiguous index ranges of a float4 array):
 //
 // * nbody_near_field, the path's kernel: it reads the tree itself, the
@@ -23,6 +23,20 @@
 //   (the 32-bit spread and compact of ops/keys.py), 32 cells at a time:
 //   lane j clips cell j and reads its (start, count); the warp then walks
 //   the non-empty cells (ballot) as runs [start, start + count).
+// * nbody_near_field_occupied, the FMM's near field on the occupied-cell
+//   tree (ops/sparse_grid.OccupiedTree, no counterpart in the JAX package):
+//   the tree has no dense cell table, so the wrapper hands a
+//   [leaves, (2k+1)^D] table of each leaf's ring as leaf rows (-1 for a cell
+//   that holds no body) beside the leaves' body runs. One warp takes one
+//   32-body target chunk of a leaf (a binary search of the chunks' prefix
+//   sum finds it), so a leaf of any size spreads over as many warps as it
+//   has chunks: a collapsing core may put tens of thousands of bodies in
+//   one leaf of the keys' last level. The warp reads 32 entries of its
+//   leaf's row at a time (lane j entry j) and walks the non-empty ones as
+//   runs, as nbody_near_field walks its cells; it writes its chunk's sorted
+//   rows once, without atomics. One launch a call, no read-back: the grid
+//   is sized for the most chunks the leaves can have (leaves + n / 32), and
+//   warps past the real total return.
 // * nbody_p2p_leaf, the window entry of the JAX layout (p2p_leaf_pallas):
 //   targets [NL, C, 4], sources [NL, S, 4] with invalid ones at mass 0;
 //   one run a row. It is held against the Pallas kernel in the tests.
@@ -199,6 +213,38 @@ struct RingCells {
   }
 };
 
+// The ring of one occupied leaf as runs of the sorted bodies: its row of
+// the ring table, entries in the order of grid_tree._neighbor_offsets.
+struct TableRuns {
+  const long long* row;  // [ncell] leaf rows, -1 for an empty cell
+  const long long* leaf_start;
+  const long long* leaf_count;
+  int ncell;
+  int lane;
+
+  template <class F>
+  __device__ __forceinline__ void for_each(F&& f) const {
+    for (int base = 0; base < ncell; base += 32) {
+      const int i = base + lane;
+      long long st = 0;
+      int ct = 0;
+      if (i < ncell) {
+        const long long j = row[i];
+        if (j >= 0) {
+          st = leaf_start[j];
+          ct = (int)leaf_count[j];
+        }
+      }
+      unsigned live = __ballot_sync(0xFFFFFFFFu, ct > 0);
+      while (live) {
+        const int j = __ffs(live) - 1;
+        live &= live - 1;
+        f(__shfl_sync(0xFFFFFFFFu, st, j), __shfl_sync(0xFFFFFFFFu, ct, j));
+      }
+    }
+  }
+};
+
 // One run: the sources of one window row.
 struct OneRun {
   long long start;
@@ -259,6 +305,50 @@ near_field_kernel(const float4* __restrict__ body,
 
 template <int DIM>
 __global__ void __launch_bounds__(kNearWarps * 32)
+occupied_near_kernel(const float4* __restrict__ body,
+                     const long long* __restrict__ table,
+                     const long long* __restrict__ leaf_start,
+                     const long long* __restrict__ leaf_count,
+                     const long long* __restrict__ chunk_end,
+                     float* __restrict__ out, int nleaves, int ncell,
+                     float soft2) {
+  __shared__ float4 ring[kNearWarps][kNearRing];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long gw = (long long)blockIdx.x * kNearWarps + warp;
+  if (gw >= chunk_end[nleaves - 1]) return;  // warp-uniform; no barrier
+  // The warp's leaf: the first whose chunks end past gw.
+  int lo = 0, hi = nleaves - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (chunk_end[mid] > gw) hi = mid; else lo = mid + 1;
+  }
+  const long long cs = leaf_start[lo];
+  const int nt = (int)leaf_count[lo];
+  const int c0 = (int)(gw - (chunk_end[lo] - (nt + 31) / 32)) * 32;
+  TableRuns runs;
+  runs.row = table + (long long)lo * ncell;
+  runs.leaf_start = leaf_start;
+  runs.leaf_count = leaf_count;
+  runs.ncell = ncell;
+  runs.lane = lane;
+  const int m = min(32, nt - c0);
+  const int tp = split_width(m);
+  const int t = lane & (tp - 1);
+  const float4 p = body[cs + c0 + min(t, m - 1)];
+  double acc[3] = {0.0, 0.0, 0.0};
+  warp_near_sums<DIM>(body, runs, p, tp, lane / tp, soft2, ring[warp], lane,
+                      acc);
+  if (lane < m) {  // split 0: lane == t
+    float* o = out + (cs + c0 + lane) * DIM;
+    o[0] = (float)acc[0];
+    o[1] = (float)acc[1];
+    if (DIM == 3) o[2] = (float)acc[2];
+  }
+}
+
+template <int DIM>
+__global__ void __launch_bounds__(kNearWarps * 32)
 p2p_window_kernel(const float4* __restrict__ tgt,
                   const float4* __restrict__ src, float4* __restrict__ out,
                   int nl, int c, int s, float soft2) {
@@ -310,6 +400,44 @@ extern "C" int nbody_near_field(const void* body, const void* cell_start,
   } else {
     near_field_kernel<3><<<grid, kNearWarps * 32, 0, strm>>>(
         b, st, ct, o, leaf_level, k, leaf0, nleaves, soft2);
+  }
+  return (int)cudaGetLastError();
+}
+
+// body: [n] float4 of the sorted bodies; table: [nleaves, ncell] int64 leaf
+// rows of each leaf's ring, -1 for an empty cell; leaf_start, leaf_count:
+// [nleaves] int64 body runs, each leaf non-empty; chunk_end: [nleaves] int64,
+// the inclusive prefix sum of the leaves' 32-body target chunks; out:
+// [n, dim] f32, every leaf's bodies' rows written. Returns
+// cudaGetLastError() after the launch.
+extern "C" int nbody_near_field_occupied(const void* body, const void* table,
+                                         const void* leaf_start,
+                                         const void* leaf_count,
+                                         const void* chunk_end, void* out,
+                                         int dim, int nleaves, int ncell,
+                                         long long n, float soft2,
+                                         void* stream) {
+  using namespace nbody;
+  if ((dim != 2 && dim != 3) || nleaves < 0 || ncell < 0 || n < 0)
+    return cudaErrorInvalidValue;
+  if (nleaves == 0) return (int)cudaGetLastError();
+  // At most one chunk a leaf more than the bodies' own ceil(n / 32).
+  const long long warps = nleaves + (n + 31) / 32;
+  const long long grid = (warps + kNearWarps - 1) / kNearWarps;
+  if (grid > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+  auto* b = static_cast<const float4*>(body);
+  auto* tb = static_cast<const long long*>(table);
+  auto* st = static_cast<const long long*>(leaf_start);
+  auto* ct = static_cast<const long long*>(leaf_count);
+  auto* ce = static_cast<const long long*>(chunk_end);
+  auto* o = static_cast<float*>(out);
+  auto strm = static_cast<cudaStream_t>(stream);
+  if (dim == 2) {
+    occupied_near_kernel<2><<<(unsigned)grid, kNearWarps * 32, 0, strm>>>(
+        b, tb, st, ct, ce, o, nleaves, ncell, soft2);
+  } else {
+    occupied_near_kernel<3><<<(unsigned)grid, kNearWarps * 32, 0, strm>>>(
+        b, tb, st, ct, ce, o, nleaves, ncell, soft2);
   }
   return (int)cudaGetLastError();
 }

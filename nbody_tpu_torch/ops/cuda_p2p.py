@@ -4,7 +4,7 @@ Port of ``nbody_tpu.ops.pallas_p2p`` (``_kernel``, built by
 ``p2p_leaf_pallas``): for each target, ``Σ_s m_s·(x_s − x_t)·u³`` over the
 bodies of the (2k+1)^D neighbour cells of its leaf, u = (d² + ε²)^{-1/2},
 u³ zeroed where the raw d² < 1e-10, always. Mass 0 marks an invalid source.
-``csrc/p2p_leaf.cu`` has two entries on one pair loop:
+``csrc/p2p_leaf.cu`` has three entries on one pair loop:
 
 * :func:`near_field_cuda`, the Barnes-Hut path's: the kernel reads the tree
   itself (the sorted bodies ``body_pack``, ``cell_start``, ``cell_count``),
@@ -16,6 +16,14 @@ u³ zeroed where the raw d² < 1e-10, always. Mass 0 marks an invalid source.
   :func:`p2p_plain`. :func:`near_field_launch` is the bare launch, so the
   kernel can be timed alone, and :func:`near_field_pairs` counts the real
   pairs of a launch.
+* :func:`near_field_occupied_cuda`, the FMM's occupied-cell layout's
+  (``sparse_grid.OccupiedTree``, no counterpart in the JAX package): the
+  kernel reads each leaf's ring from a [leaves, (2k+1)^D] table of leaf
+  rows (``sparse_grid.occupied_ring_table``), one warp a 32-body target
+  chunk, and writes every body's row in sorted order: one launch a call,
+  ``LAUNCHES["near_field_occupied"]``. Its plain version,
+  :func:`near_field_occupied_plain`, sums each body's ring sources laid
+  end to end.
 * :func:`p2p_leaf_cuda`, the window entry in the JAX kernel's layout (one
   row of gathered sources per leaf), which the tests hold against
   ``p2p_leaf_pallas``: K6's window kernel on CUDA tensors,
@@ -228,3 +236,71 @@ def p2p_leaf_plain(tpos4, src8, *, dim, softening):
     out = tpos4.new_zeros(tpos4.shape)
     out[..., :dim] = acc
     return out
+
+
+# --- The occupied-cell tree's near field --------------------------------------
+
+def near_field_occupied_plain(tree, table: torch.Tensor,
+                              softening: float) -> torch.Tensor:
+    """Plain version of :func:`near_field_occupied_cuda` in the tree's
+    dtype: each sorted body (one target a row, in blocks of rows) against
+    the bodies of its leaf's ring in ``table`` (−1 entries skipped), laid
+    end to end up to the longest ring's total (read back once, counted in
+    ``fmm.reads``), summed by :func:`p2p_plain`. Returns [N, D] in
+    sorted-body order."""
+    from ..utils.profiling import count
+    dim, n = tree.dim, tree.n
+    body = tree.body_pack
+    rc = table.clamp(min=0)
+    rcnt = torch.where(table >= 0, tree.leaf_count[rc], 0)  # [leaves, nc]
+    rend = torch.cumsum(rcnt, 1)  # end of each ring cell's run of sources
+    rstart = tree.leaf_start[rc] - (rend - rcnt)
+    count("fmm.reads")
+    smax = max(1, int(rend[:, -1].max()))
+    slots = torch.arange(smax, device=body.device)
+    out = body.new_empty((n, dim))
+    rows = max(1, _PLAIN_TILE_ELEMS // smax)
+    for b0 in range(0, n, rows):
+        leaf = tree.body_leaf[b0:b0 + rows]
+        # Source slot s of a row lies in the ring cell j whose run holds it.
+        j = torch.searchsorted(rend[leaf], slots.expand(leaf.shape[0], smax)
+                               .contiguous(), right=True)
+        valid = j < table.shape[1]
+        jc = j.clamp(max=table.shape[1] - 1)
+        src = body[(torch.gather(rstart[leaf], 1, jc) + slots).clamp(0, n - 1)]
+        src = torch.cat([src[..., :3], (src[..., 3] * valid)[..., None]], -1)
+        out[b0:b0 + rows] = p2p_plain(body[b0:b0 + rows, None, :dim], src,
+                                      softening)[:, 0]
+    return out
+
+
+def near_field_occupied_cuda(tree, table: torch.Tensor,
+                             softening: float) -> torch.Tensor:
+    """The ring near field of every body of an occupied-cell tree
+    (``sparse_grid.OccupiedTree``) in sorted-body order, not scaled by G:
+    for each leaf, its bodies against the bodies of the leaves of its row
+    of ``table`` (``sparse_grid.occupied_ring_table``). On CUDA tensors one
+    K6 launch (computed in fp32, cast back to the tree's dtype), no
+    read-back; on CPU tensors :func:`near_field_occupied_plain`."""
+    if _device_kind(tree.body_pack, table) == "cpu":
+        return near_field_occupied_plain(tree, table, softening)
+    if tree.n >= 1 << 31:
+        raise ValueError(f"near_field_occupied kernel: N = {tree.n} needs "
+                         f"32-bit body indices")
+    body4 = tree.body_pack.to(torch.float32).contiguous()
+    table = table.to(torch.int64).contiguous()
+    start = tree.leaf_start.to(torch.int64).contiguous()
+    count = tree.leaf_count.to(torch.int64).contiguous()
+    # The kernel's warp of global index w takes the target chunk w of the
+    # leaves' 32-body chunks, found in their inclusive prefix sum.
+    chunk_end = torch.cumsum((count + 31) // 32, 0)
+    out = torch.empty((tree.n, tree.dim), dtype=torch.float32,
+                      device=body4.device)
+    code = cuda_build.load_library().nbody_near_field_occupied(
+        body4.data_ptr(), table.data_ptr(), start.data_ptr(),
+        count.data_ptr(), chunk_end.data_ptr(), out.data_ptr(), tree.dim,
+        table.shape[0], table.shape[1], tree.n, float(softening) ** 2,
+        _stream())
+    cuda_build.check(code, "near_field_occupied kernel")
+    LAUNCHES["near_field_occupied"] += 1
+    return out.to(tree.pos_sorted.dtype)

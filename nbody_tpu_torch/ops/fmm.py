@@ -77,14 +77,41 @@ What differs from the JAX package, and why:
   over the shard's bodies, where the JAX program runs every body and
   zeroes the others.
 
+* The occupied-cell ("adaptive") layout has no counterpart in the JAX
+  package (:func:`fmm_occupied_accel_sorted` on
+  ``sparse_grid.OccupiedTree``): the grid's phases on the cells that hold
+  bodies only, down to a leaf level read from the data, so that a
+  clustered input is a tree code and not a direct sum over one crowded
+  leaf. P2M by body (a leaf averages a few bodies there), M2M and L2L
+  through each parent's 2^D child slots, M2L through the same parity-class
+  product as the grid's (:func:`_m2l_classes`, one code path: the grid
+  finds a source row from its Morton id, the occupied layout by
+  ``searchsorted`` in the level's sorted ids, a missing source reading the
+  zero row in both), L2P in the same blocks, and the near field through
+  K6's occupied-leaf entry (``cuda_p2p.near_field_occupied_cuda``). In
+  float64 it equals the dense and sparse layouts at the same leaf level up
+  to the order of the sums. **Departure from the JAX package:** under
+  ``layout="auto"``, an input that trips the dense capacity guard takes
+  this layout (at ``leaf_level`` if given, else at the depth rule's),
+  where the JAX package's ``"auto"`` takes its sparse layout; the sparse
+  layout is reached by ``layout="sparse"``.
+
 Spans (:mod:`..utils.profiling`, off by default), on the tree's device:
 ``fmm.build`` (the capacity scan or ``sparse_grid_stats``, and
-``build_grid_tree``), ``fmm.upward`` (P2M and M2M), ``fmm.m2l`` (M2L over
-every level), ``fmm.downward`` (L2L and L2P), ``fmm.p2p`` (the near field);
-counter ``fmm.reads``, each host read-back of a call (the capacity, the
-sparse grid's sizes, each chunk batch's window table, a shard's body
-range); counter ``fmm.m2l_products``, the (target cell, offset) operator
-products M2L makes.
+``build_grid_tree``; or the occupied-cell tree's probe and build),
+``fmm.upward`` (P2M and M2M), ``fmm.m2l`` (M2L over every level),
+``fmm.downward`` (L2L and L2P), ``fmm.p2p`` (the near field); counter
+``fmm.reads``, each host read-back of a call (the capacity, the sparse
+grid's sizes, each chunk batch's window table, a shard's body range, the
+occupied-cell tree's depth probe, and its plain near field's longest
+ring); counter ``fmm.m2l_products``, the (target cell, offset) operator
+products M2L makes (on the occupied cells, the parity classes' rows with
+their pad rows). The occupied-cell layout's own counters: counter
+``fmm.occupied_cells``, the occupied cells of levels 2..L;
+``fmm.m2l_pairs``, M2L's (target cell, offset) pairs whose source holds
+bodies; ``fmm.near_pairs``, the (target, source) body pairs its near field
+evaluates. The last two are summed on the device after their phase's span
+(no read-back; read with the counters), and only while spans are on.
 """
 
 from __future__ import annotations
@@ -99,12 +126,14 @@ import torch
 
 from ..config import DEFAULT_GRAVITY, GravityConfig
 from ..utils.device_mesh import Mesh
-from ..utils.profiling import count, span
+from ..utils.profiling import count, span, spans_enabled
 from .grid_tree import (GridTree, _clipped_ids, _in_bounds, _near_field_accel,
                         _resolve_p2p_impl, _window_rows, auto_leaf_level,
                         build_grid_tree, cell_coords, check_grid_capacity,
                         chunk_table, compute_capacity,
-                        dense_layout_degenerate, shard_leaves)
+                        dense_layout_degenerate, near_field_kernel,
+                        shard_leaves)
+from .keys import morton_key_from_coords
 
 # The dtype of the local side (module docstring): K, M2L, L2L and L2P.
 _LOCAL_DTYPE = torch.float64
@@ -434,33 +463,52 @@ def _m2l_level(tree: GridTree, w_l: torch.Tensor, ops, l: int,
     its id's low D bits wherever the range starts; the cover's rows outside
     the range (at most 2^D − 1 at each end) are computed and dropped. Each
     chunk of offsets is one product batched over the classes."""
-    dim, L = tree.dim, tree.leaf_level
-    dq, KT = ops
-    ncls, nq = dq.shape[:2]
-    nD = KT.shape[-1]
+    dim = tree.dim
+    ncls = ops[0].shape[0]
     ncells = (1 << (dim * l)) - row0 if nrows is None else nrows
     c0 = row0 - row0 % ncls
     m = -(-(row0 + ncells - c0) // ncls)  # cells a class in the cover
     xy = cell_coords(torch.arange(c0, c0 + m * ncls, device=w_l.device),
                      dim).view(m, ncls, dim).transpose(0, 1)  # [2^D, m, D]
-    # The level's weights and a zero row, read by offsets off the grid.
+
+    def source_rows(src, zero):  # offsets off the grid read the zero row
+        return torch.where(_in_bounds(src, l),
+                           _clipped_ids(src, l, dim, src.shape[:-1]), zero)
+
+    acc = _m2l_classes(w_l, ops, xy, source_rows, 2.0 ** -(tree.leaf_level
+                                                           - l))
+    nD = acc.shape[1]
+    return acc.permute(2, 0, 1).reshape(-1, nD)[row0 - c0:row0 - c0 + ncells]
+
+
+def _m2l_classes(w_l: torch.Tensor, ops, xy: torch.Tensor, source_rows,
+                 scale: float) -> torch.Tensor:
+    """M2L's product, batched over the parity classes: the local weights
+    [2^D, n^D, m] of the target cells at grid coords ``xy`` [2^D, m, D]
+    (class q's cells in row q), each the sum over its class's offsets of
+    Kᵀ_δ·scale times its source's multipole weights. ``source_rows(src,
+    zero)`` gives the rows of ``w_l`` at coords ``src`` [..., D], ``zero``
+    (an appended zero row) where there is no source cell."""
+    dq, KT = ops
+    ncls, nq = dq.shape[:2]
+    nD = KT.shape[-1]
+    m = xy.shape[1]
+    # The level's weights and a zero row.
     zero = w_l.shape[0]
     w = w_l.new_zeros((zero + 1, nD), dtype=KT.dtype)
     w[:zero] = w_l
     # Transposed, [2^D, n^D, m]: cuBLAS's fp64 product of this order ran
     # 57 TFLOP/s at leaf level 5 in 3D on an H100, the other order 50.
     acc = w.new_zeros((ncls, nD, m))
-    scale = 2.0 ** -(L - l)  # K_l = K_L·2^-(L-l), exact
     step = max(1, min(nq, _M2L_GATHER_BYTES
                       // (ncls * m * nD * KT.element_size())))
     for j0 in range(0, nq, step):
-        src = xy[:, :, None, :] + dq[:, None, j0:j0 + step, :]
-        ids = torch.where(_in_bounds(src, l),
-                          _clipped_ids(src, l, dim, src.shape[:-1]), zero)
+        ids = source_rows(xy[:, :, None, :] + dq[:, None, j0:j0 + step, :],
+                          zero)
         acc.baddbmm_(KT[:, j0 * nD:(j0 + step) * nD].transpose(1, 2),
                      w[ids].view(ncls, m, -1).transpose(1, 2), alpha=scale)
     count("fmm.m2l_products", ncls * m * nq)
-    return acc.permute(2, 0, 1).reshape(-1, nD)[row0 - c0:row0 - c0 + ncells]
+    return acc
 
 
 def _m2l(tree: GridTree, W: dict, order: int, k: int) -> dict:
@@ -485,23 +533,29 @@ def _l2l(Lc: dict, m2m: torch.Tensor, L: int, nl: int) -> torch.Tensor:
 
 
 def _l2p(tree: GridTree, L_leaf: torch.Tensor, order: int,
-         Tt: torch.Tensor, b0: int = 0,
-         b1: Optional[int] = None) -> torch.Tensor:
+         Tt: torch.Tensor, b0: int = 0, b1: Optional[int] = None,
+         leaf_keys: Optional[torch.Tensor] = None,
+         body_leaf: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Far-field accelerations [b1 − b0, D] of sorted bodies [b0, b1) (by
     default all): the gradient of the leaf interpolant, in blocks of
     ``_L2P_BLOCK`` bodies, computed in the dtype of the local weights
-    ``L_leaf`` and of ``Tt``, written in the tree's."""
+    ``L_leaf`` and of ``Tt``, written in the tree's. ``L_leaf``'s rows are
+    the leaves with Morton ids ``leaf_keys`` (by default every leaf of the
+    grid), and ``body_leaf`` [N] each sorted body's row (by default its
+    leaf id)."""
     dim, ldt = tree.dim, L_leaf.dtype
     b1 = tree.n if b1 is None else b1
     half = _leaf_half(tree, ldt)
-    centers = _cell_centers(tree, torch.arange(tree.num_leaf_cells,
-                                               device=L_leaf.device), ldt)
+    if leaf_keys is None:
+        leaf_keys = torch.arange(tree.num_leaf_cells, device=L_leaf.device)
+        body_leaf = tree.leaf_ids
+    centers = _cell_centers(tree, leaf_keys, ldt)
     out = tree.pos_sorted.new_empty((b1 - b0, dim))
     for i0 in range(b0, b1, _L2P_BLOCK):
         sl = slice(i0, min(i0 + _L2P_BLOCK, b1))
-        body_leaf = tree.leaf_ids[sl]
-        lw = L_leaf[body_leaf]  # [B, n^D]
-        y = (tree.pos_sorted[sl].to(ldt) - centers[body_leaf]) / half
+        leaf = body_leaf[sl]
+        lw = L_leaf[leaf]  # [B, n^D]
+        y = (tree.pos_sorted[sl].to(ldt) - centers[leaf]) / half
         s, ds = _interp_and_grad_1d(order, y, Tt)  # [B, D, n]
         s, ds = s.unbind(1), ds.unbind(1)
         out[i0 - b0:sl.stop - b0] = torch.stack([
@@ -543,6 +597,148 @@ def _leaf_bodies(tree: GridTree, leaf0: int, nleaves: int):
     b0, b1 = torch.stack([tree.cell_start[leaf0], tree.cell_start[last]
                           + tree.cell_count[last]]).tolist()
     return int(b0), int(b1)
+
+
+# --- The occupied-cell ("adaptive") layout ----------------------------------
+
+def _p2m_occupied(tree, order: int, Tt: torch.Tensor) -> torch.Tensor:
+    """Leaf node weights [leaves, n^D] of an occupied-cell tree: each
+    body's own weights (``_anterpolate`` of a one-body row), in blocks of
+    ``_L2P_BLOCK`` bodies, added into its leaf's row. A leaf averages a few
+    bodies there, so per-body rows do no padded work where chunks of 64
+    would do ~18 times the real."""
+    dim, L = tree.dim, tree.leaf_level
+    half = _leaf_half(tree)
+    centers = _cell_centers(tree, tree.keys[L])
+    W = tree.pos_sorted.new_zeros((tree.num_leaves, order ** dim))
+    for b0 in range(0, tree.n, _L2P_BLOCK):
+        sl = slice(b0, b0 + _L2P_BLOCK)
+        leaf = tree.body_leaf[sl]
+        mass = tree.mass_sorted[sl, None]
+        W.index_add_(0, leaf, _anterpolate(
+            tree.pos_sorted[sl, None, :], mass, torch.ones_like(
+                mass, dtype=torch.bool), centers[leaf], half, order, Tt))
+    return W
+
+
+def _m2m_occupied(tree, W_leaf: torch.Tensor, m2m: torch.Tensor) -> dict:
+    """Upward sweep on occupied cells: node weights of every level 2..L.
+    Each level's children sit in their parents' [cells, 2^D, n^D] slots
+    (zero where a child holds no body), then the dense layout's product."""
+    dim, L, nD = tree.dim, tree.leaf_level, W_leaf.shape[1]
+    W = {L: W_leaf}
+    for l in range(L - 1, 1, -1):
+        child = W_leaf.new_zeros((tree.cells[l] << dim, nD))
+        child[tree.child_slot[l + 1]] = W[l + 1]
+        W[l] = torch.einsum("pon,omn->pm", child.view(-1, 1 << dim, nD),
+                            m2m)
+    return W
+
+
+def _m2l_occupied(tree, w_l: torch.Tensor, ops, l: int) -> torch.Tensor:
+    """Level l's V-list transfers into its occupied cells [cells_l, n^D], in
+    K's dtype: the parity classes' batched product over the class table
+    (a class's pad rows are computed and dropped), each source found by
+    ``searchsorted`` of its Morton id in the level's occupied ids; a
+    source that holds no body or lies off the grid reads the zero row."""
+    dim, keys = tree.dim, tree.keys[l]
+    last = keys.shape[0] - 1
+    xy = cell_coords(keys[tree.class_cells[l]], dim)  # [2^D, m, D]
+
+    def source_rows(src, zero):
+        key = _clipped_ids(src, l, dim, src.shape[:-1])
+        row = torch.searchsorted(keys, key).clamp(max=last)
+        hit = (keys[row] == key) & _in_bounds(src, l)
+        return torch.where(hit, row, zero)
+
+    acc = _m2l_classes(w_l, ops, xy, source_rows,
+                       2.0 ** -(tree.leaf_level - l))
+    nD = acc.shape[1]
+    return acc.permute(0, 2, 1).reshape(-1, nD)[tree.class_slot[l]]
+
+
+def _m2l_pairs(tree, dq: torch.Tensor) -> torch.Tensor:
+    """The (target cell, offset) pairs of levels 2..L whose source cell
+    holds bodies (M2L's useful products, without the classes' pad rows and
+    the missing sources), for the class offsets ``dq`` [2^D, nq, D]: a
+    0-dim int64 tensor on the device, no read-back. All levels in one
+    lookup: a level-l id tagged with the bit 2^(D·l) above it, the levels'
+    tagged ids end to end are one sorted array."""
+    dim, levels = tree.dim, range(2, tree.leaf_level + 1)
+    tag = torch.cat([torch.full_like(tree.keys[l], 1 << (dim * l))
+                     for l in levels])
+    keys = torch.cat([tree.keys[l] for l in levels]) | tag
+    side = torch.cat([torch.full_like(tree.keys[l], 1 << l)
+                      for l in levels])[:, None, None]
+    src = cell_coords(keys & (tag - 1), dim)[:, None, :] \
+        + dq[keys & (dq.shape[0] - 1)]
+    inside = ((src >= 0) & (src < side)).all(-1)
+    key = morton_key_from_coords(torch.minimum(src.clamp(min=0), side - 1)
+                                 .reshape(-1, dim), 0).view(inside.shape)
+    key = key | tag[:, None]
+    row = torch.searchsorted(keys, key).clamp(max=keys.shape[0] - 1)
+    return ((keys[row] == key) & inside).sum()
+
+
+def _l2l_occupied(tree, Lc: dict, m2m: torch.Tensor) -> torch.Tensor:
+    """Downward sweep on occupied cells: each parent passes its local
+    weights to its 2^D child slots (the dense layout's product), and each
+    occupied child takes its slot. Returns the leaves' [leaves, n^D]."""
+    L = tree.leaf_level
+    if L < 2:
+        return m2m.new_zeros((tree.num_leaves, m2m.shape[1]))
+    for l in range(2, L):
+        down = torch.einsum("pm,omn->pon", Lc[l], m2m)
+        Lc[l + 1] = Lc[l + 1] + down.reshape(-1, m2m.shape[1])[
+            tree.child_slot[l + 1]]
+    return Lc[L]
+
+
+def fmm_occupied_accel_sorted(tree, order: int = 5, ring: int = 1,
+                              softening: float = 0.0,
+                              p2p_impl: str = "auto") -> torch.Tensor:
+    """FMM accelerations [N, D] of the sorted bodies of an occupied-cell
+    tree (``sparse_grid.OccupiedTree``), not G-scaled: the dense layout's
+    phases on occupied cells only (P2M by body, M2M and L2L through the
+    parents' child slots, M2L by parity class with sources looked up in
+    each level's ids, L2P in its blocks), the local side in float64 as
+    there. The near field is K6's occupied-leaf entry for an fp32 tree on
+    the card under ``"auto"`` (or under ``"cuda"``), its plain version in
+    the tree's dtype otherwise (``"plain"``, a CPU tree, another dtype). No
+    read-back on the card's fp32 path."""
+    from .cuda_p2p import near_field_occupied_cuda, near_field_occupied_plain
+    from .sparse_grid import occupied_ring_pairs, occupied_ring_table
+    dim, L = tree.dim, tree.leaf_level
+    dt, dev = tree.pos_sorted.dtype, tree.pos_sorted.device
+    _check_matmul_precision(tree.pos_sorted)
+    count("fmm.occupied_cells", sum(tree.cells[2:]))
+    counting = spans_enabled()  # the device-side counts below, outside
+    with span("fmm.upward", dev):
+        Tt, m2m, Tt_local, m2m_local = _side_tables(dim, order, dt, dev)
+        W = _m2m_occupied(tree, _p2m_occupied(tree, order, Tt), m2m)
+    Lc = {}
+    if L >= 2:
+        with span("fmm.m2l", dev):
+            ops = _m2l_operators(tree, order, ring)
+            Lc = {l: _m2l_occupied(tree, W[l], ops, l)
+                  for l in range(2, L + 1)}
+        dq = ops[0]
+        del ops  # Kᵀ's rows before the count's own tensors
+        if counting:
+            count("fmm.m2l_pairs", _m2l_pairs(tree, dq))
+    with span("fmm.downward", dev):
+        L_leaf = _l2l_occupied(tree, Lc, m2m_local)
+    with span("fmm.downward", dev):
+        acc = _l2p(tree, L_leaf, order, Tt_local, leaf_keys=tree.keys[L],
+                   body_leaf=tree.body_leaf)
+    with span("fmm.p2p", dev):
+        fn = (near_field_occupied_cuda if near_field_kernel(p2p_impl, tree)
+              else near_field_occupied_plain)
+        table = occupied_ring_table(tree, ring)
+        acc = acc + fn(tree, table, softening)
+    if counting:
+        count("fmm.near_pairs", occupied_ring_pairs(tree, table))
+    return acc
 
 
 def fmm_shard_partials(trees, mesh: Optional[Mesh] = None, order: int = 5,
@@ -692,32 +888,44 @@ def fmm_forces(
     near field in the bodies' dtype), ``"cuda"`` (K6 in fp32 on any dtype)
     or ``"plain"``. ``layout``: ``"dense"`` (capacity-padded P2M and P2P;
     refuses a degenerate capacity), ``"sparse"`` (chunked targets and a
-    windowed plain near field, O(N) memory on any distribution) or
-    ``"auto"``: dense, and sparse where the capacity guard would trip.
+    windowed plain near field, O(N) memory on any distribution),
+    ``"adaptive"`` (the occupied-cell tree, ``sparse_grid.OccupiedTree``,
+    at ``leaf_level`` or, without one, at the depth rule's level: the
+    shallowest whose fullest leaf holds at most 256 bodies, no deeper than
+    leaves of 128 softening lengths; K6's occupied-leaf entry as P2P) or ``"auto"``: dense, and adaptive where
+    the capacity guard would trip (the JAX package's ``"auto"`` takes
+    sparse there, and has no adaptive layout).
     """
     n, dim = positions.shape
-    if layout not in ("auto", "dense", "sparse"):
-        raise ValueError(f"layout must be 'auto', 'dense' or 'sparse', "
-                         f"got {layout!r}")
+    if layout not in ("auto", "dense", "sparse", "adaptive"):
+        raise ValueError(f"layout must be 'auto', 'dense', 'sparse' or "
+                         f"'adaptive', got {layout!r}")
     if dim == 3 and n >= 5_000_000:
         # The JAX package's batch for its TPU compiler at 5e6 3D, kept for
         # parity.
         leaf_batch = min(leaf_batch, 256)
-    if leaf_level is None:
+    depth_rule = leaf_level is None
+    if leaf_level is None and layout != "adaptive":
         leaf_level = auto_leaf_level(n, dim)
-    sparse = layout == "sparse"
+    sparse, adaptive = layout == "sparse", layout == "adaptive"
     soft = float(config.softening)
     with span("fmm.build", positions.device):
-        if capacity is None and not sparse:
+        if capacity is None and not (sparse or adaptive):
             count("fmm.reads")
             capacity = compute_capacity(positions, leaf_level)
             if layout == "auto" and dense_layout_degenerate(
                     capacity, n, leaf_level, dim):
-                sparse = True
+                adaptive = True
             else:
                 check_grid_capacity(capacity, n, leaf_level, dim,
                                     "fmm_forces")
-        if sparse:
+        if adaptive:
+            from .sparse_grid import build_occupied_tree
+            p2p_impl = _resolve_p2p_impl(p2p_impl, positions.device)
+            tree = build_occupied_tree(positions, masses,
+                                       None if depth_rule else leaf_level,
+                                       soft)
+        elif sparse:
             from .sparse_grid import sparse_grid_stats
             chunk_size, window = 64, 8
             count("fmm.reads")
@@ -729,7 +937,10 @@ def fmm_forces(
         else:
             p2p_impl = _resolve_p2p_impl(p2p_impl, positions.device)
             tree = build_grid_tree(positions, masses, leaf_level, capacity)
-    if sparse:
+    if adaptive:
+        acc_sorted = fmm_occupied_accel_sorted(
+            tree, order=order, ring=ring, softening=soft, p2p_impl=p2p_impl)
+    elif sparse:
         acc_sorted = fmm_accel_sorted(
             tree, order=order, ring=ring, softening=soft,
             leaf_batch=leaf_batch, num_chunks=num_chunks,

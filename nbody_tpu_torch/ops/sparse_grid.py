@@ -42,21 +42,34 @@ What differs from the JAX package, and why:
   longest chunk: the rows and slots it skips are never read.
 * The near field here is plain torch, as it is plain ``jnp`` in the JAX
   package: no K6 launch.
+
+The occupied-cell tree (:class:`OccupiedTree`, the FMM's ``"adaptive"``
+layout; the JAX package has none) keeps only the cells that hold bodies,
+level by level, down to a leaf level read from the data
+(:func:`occupied_levels`): no tensor has 2^(D·L) elements, so a Plummer
+core can be resolved to the Morton keys' last bit (L = 10 in 3D, 16 in
+2D). Each level is its sorted unique Morton ids; a cell finds its parent,
+and a neighbour its row, by ``searchsorted`` in the coarser or the same
+level's ids (a missing neighbour finds none). Memory is O(N + cells).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+import functools
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..config import DEFAULT_GRAVITY, GravityConfig
+from ..utils.profiling import count
 from .grid_tree import (GridTree, _clipped_ids, _in_bounds,
                         _neighbor_offsets, _point_mass_accel,
                         auto_leaf_level, build_grid_tree, cell_coords,
-                        chunk_table, far_field_rings, theta_to_ring)
-from .keys import morton_key_from_coords, quantize
+                        chunk_table, domain_bounds, far_field_rings,
+                        theta_to_ring)
+from .keys import MAX_BITS, morton_key_from_coords, quantize
 
 # Bodies a block of the window-count probe (the JAX package's block).
 _STATS_BLOCK = 16384
@@ -243,3 +256,215 @@ def barnes_hut_sparse(
     acc = torch.empty_like(acc_sorted)
     acc[tree.order] = acc_sorted
     return (config.G * masses)[:, None] * acc
+
+
+# --- The occupied-cell tree ---------------------------------------------------
+
+#: The most bodies the fullest leaf of the occupied-cell tree may hold under
+#: the depth rule. Not tuned: at the Plummer 1e5 cell it takes the keys'
+#: last level, where M2L, not the near field, takes most of a call.
+OCCUPIED_LEAF_MAX = 256
+
+#: The shortest leaf side the depth rule takes, in softening lengths. M2L's
+#: kernel is the unsoftened 1/r, so a far pair at distance r reads a force
+#: (1 + ε²/r²)^{3/2} times the softened one: about 1e-4 at r = 128ε for the
+#: nearest far pairs, one leaf side apart. Deeper, the far field drifts
+#: from the softened sum (order 8 on 60% of 3000 2D bodies in a 1e-2 box,
+#: ε = 1e-4: 5.7e-7 at a leaf side of 160ε, 1.1e-3 at 20ε, 0.17 at 2.5ε).
+OCCUPIED_LEAF_SOFTENINGS = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class OccupiedTree:
+    """The occupied cells of levels 0..L of the grid over the bodies' AABB
+    (``keys.quantize``'s ×1.01 box), each level as its sorted unique Morton
+    ids. ``dim``, ``leaf_level`` and the per-level sizes are plain ints,
+    every other field a tensor or a tuple of per-level tensors (index =
+    level, None at the levels no phase reads)."""
+
+    dim: int
+    leaf_level: int
+    cells: Tuple[int, ...]  # occupied cells of each level 0..L
+    class_rows: Tuple[int, ...]  # the fullest parity class of each level
+
+    lo: torch.Tensor  # [D] domain lower corner
+    cell_sizes: torch.Tensor  # [L+1, D] cell size per level
+
+    order: torch.Tensor  # [N] original index of each sorted slot
+    pos_sorted: torch.Tensor  # [N, D]
+    mass_sorted: torch.Tensor  # [N]
+    body_pack: torch.Tensor  # [N, 4] (pos|0, mass) of the sorted bodies
+    body_leaf: torch.Tensor  # [N] row of each sorted body's leaf
+
+    # [(cells_l,)] sorted occupied Morton ids of levels 1..L.
+    keys: Tuple[Optional[torch.Tensor], ...]
+    # Levels 2..L. Row of each cell's slot among its parent's 2^D
+    # children, parent·2^D + octant (the M2M / L2L layout
+    # [cells_{l-1}, 2^D, ·]); M2L's targets by parity class, [2^D,
+    # class_rows_l] cell rows, each class padded with row 0; and each
+    # cell's flat slot in that table.
+    child_slot: Tuple[Optional[torch.Tensor], ...]
+    class_cells: Tuple[Optional[torch.Tensor], ...]
+    class_slot: Tuple[Optional[torch.Tensor], ...]
+
+    leaf_start: torch.Tensor  # [leaves] first sorted body of each leaf
+    leaf_count: torch.Tensor  # [leaves]
+
+    @property
+    def n(self) -> int:
+        return self.pos_sorted.shape[0]
+
+    @property
+    def num_leaves(self) -> int:
+        return self.cells[self.leaf_level]
+
+
+def _run_stats(keys_l: torch.Tensor, nch: int) -> torch.Tensor:
+    """[2 + 2^D] of one level's sorted body keys: the occupied cells, the
+    fullest cell's bodies, and the occupied cells of each parity class."""
+    first = torch.ones_like(keys_l, dtype=torch.bool)
+    first[1:] = keys_l[1:] != keys_l[:-1]
+    # Each body's cell's bodies: the run of its key in the sorted keys.
+    run = (torch.searchsorted(keys_l, keys_l, right=True)
+           - torch.searchsorted(keys_l, keys_l))
+    cls = torch.zeros(nch, dtype=torch.int64, device=keys_l.device)\
+        .index_add_(0, keys_l & (nch - 1), first.to(torch.int64))
+    return torch.cat([first.sum().reshape(1), run.max().reshape(1), cls])
+
+
+def occupied_levels(positions: torch.Tensor,
+                    leaf_level: Optional[int] = None,
+                    softening: float = 0.0):
+    """The occupied-cell tree's probe, one read-back (counted in
+    ``fmm.reads``): the bodies' Morton keys at the keys' full depth (10
+    bits a dimension in 3D, 16 in 2D), sorted, and for every level 1..that
+    depth the occupied cells, the fullest cell's bodies and the occupied
+    cells of each parity class.
+
+    The leaf level is ``leaf_level`` if given, else the depth rule: the
+    shallowest level whose fullest cell holds at most
+    ``OCCUPIED_LEAF_MAX`` bodies, and no deeper than the keys' depth nor
+    than the deepest level (at least 1) whose leaves' shortest side is
+    ``OCCUPIED_LEAF_SOFTENINGS`` × ``softening`` (for ε > 0). Returns (leaf
+    level, {level: (cells, fullest, [cells of each class])}, (lo, hi),
+    order, sorted keys)."""
+    n, dim = positions.shape
+    bits = MAX_BITS[dim]
+    if leaf_level is not None and not 1 <= leaf_level <= bits:
+        raise ValueError(f"the occupied-cell tree's leaf level must be in "
+                         f"[1, {bits}] in {dim}D, got {leaf_level}")
+    lo, hi = domain_bounds(positions)
+    keys = morton_key_from_coords(quantize(positions, bits, lo=lo, hi=hi),
+                                  bits)
+    order = torch.argsort(keys, stable=True)
+    ks = keys[order]
+    nch = 1 << dim
+    stats = torch.stack([_run_stats(ks >> (dim * (bits - l)), nch)
+                         for l in range(1, bits + 1)])
+    # The deepest level the softening allows, read back with the stats.
+    deepest = stats.new_full((1,), bits)
+    if softening > 0:
+        sides = (hi - lo).min() / (OCCUPIED_LEAF_SOFTENINGS * softening)
+        deepest = torch.floor(torch.log2(sides)).clamp(1, bits).to(
+            deepest.dtype).reshape(1)
+    count("fmm.reads")
+    *flat, deepest = torch.cat([stats.flatten(), deepest]).tolist()
+    width = stats.shape[1]
+    levels = {l: (r[0], r[1], r[2:]) for l, r in zip(
+        range(1, bits + 1), (flat[i:i + width]
+                             for i in range(0, len(flat), width)))}
+    if leaf_level is None:
+        leaf_level = next((l for l in range(1, deepest + 1)
+                           if levels[l][1] <= OCCUPIED_LEAF_MAX), deepest)
+    return leaf_level, levels, (lo, hi), order, ks
+
+
+@functools.lru_cache(maxsize=None)
+def _offsets_on(dim: int, k: int, device: torch.device) -> torch.Tensor:
+    """The (2k+1)^D ring offsets [nc, D] on ``device``, built once for each
+    (dim, k, device) and shared, so read only: a copy from the host would
+    wait on the device's stream in every evaluation."""
+    return torch.as_tensor(_neighbor_offsets(dim, k), device=device)
+
+
+def build_occupied_tree(positions: torch.Tensor, masses: torch.Tensor,
+                        leaf_level: Optional[int] = None,
+                        softening: float = 0.0) -> OccupiedTree:
+    """The occupied-cell tree of the bodies at ``leaf_level`` or the depth
+    rule's (one read-back, the probe of :func:`occupied_levels`): the bodies sorted by their full-depth Morton
+    keys (stable), so each leaf's bodies are one contiguous run, as in
+    ``build_grid_tree``; every level's occupied ids, each cell's slot under
+    its parent, M2L's parity-class tables and the leaves' body runs. O(N +
+    cells) memory; no device sync past the probe."""
+    n, dim = positions.shape
+    L, levels, (lo, hi), order, ks = occupied_levels(positions, leaf_level,
+                                                     softening)
+    bits = MAX_BITS[dim]
+    nch = 1 << dim
+    dev = positions.device
+    cells = (1,) + tuple(levels[l][0] for l in range(1, L + 1))
+    class_rows = (1,) + tuple(max(levels[l][2]) for l in range(1, L + 1))
+    keys = [None]
+    for l in range(1, L + 1):
+        kl = ks >> (dim * (bits - l))
+        first = torch.ones_like(kl, dtype=torch.bool)
+        first[1:] = kl[1:] != kl[:-1]
+        run = torch.cumsum(first, 0) - 1  # each body's cell row
+        # Every body of a cell writes the same id into the cell's row.
+        keys.append(kl.new_zeros(cells[l]).index_put_((run,), kl))
+    child_slot, class_cells, class_slot = [None] * 2, [None] * 2, [None] * 2
+    for l in range(2, L + 1):
+        parent = torch.searchsorted(keys[l - 1], keys[l] >> dim)
+        child_slot.append(parent * nch + (keys[l] & (nch - 1)))
+        # Cells by parity class, each class's rows in key order.
+        cls = keys[l] & (nch - 1)
+        perm = torch.argsort(cls, stable=True)
+        cls_s = cls[perm]
+        within = (torch.arange(cells[l], device=dev)
+                  - torch.searchsorted(cls_s, cls_s))
+        slot = cls_s * class_rows[l] + within
+        table = torch.zeros(nch * class_rows[l], dtype=torch.int64,
+                            device=dev)
+        table[slot] = perm
+        cslot = torch.empty_like(slot)
+        cslot[perm] = slot
+        class_cells.append(table.view(nch, class_rows[l]))
+        class_slot.append(cslot)
+    kL = keys[L]
+    body_keys = ks >> (dim * (bits - L))
+    start = torch.searchsorted(body_keys, kL)
+    end = torch.searchsorted(body_keys, kL, right=True)
+    pos_s = positions[order]
+    mass_s = masses[order]
+    bp = torch.zeros((n, 4), dtype=positions.dtype, device=dev)
+    bp[:, :dim] = pos_s
+    bp[:, 3] = mass_s
+    return OccupiedTree(
+        dim=dim, leaf_level=L, cells=cells, class_rows=class_rows, lo=lo,
+        cell_sizes=torch.stack([(hi - lo) / (1 << l) for l in range(L + 1)]),
+        order=order, pos_sorted=pos_s, mass_sorted=mass_s, body_pack=bp,
+        body_leaf=run, keys=tuple(keys), child_slot=tuple(child_slot),
+        class_cells=tuple(class_cells), class_slot=tuple(class_slot),
+        leaf_start=start, leaf_count=end - start)
+
+
+def occupied_ring_table(tree: OccupiedTree, k: int) -> torch.Tensor:
+    """[leaves, (2k+1)^D] int64: each leaf's ring cells as leaf rows, in the
+    order of ``grid_tree._neighbor_offsets`` (first coordinate slowest), −1
+    where the cell holds no body or lies off the grid."""
+    dim, L = tree.dim, tree.leaf_level
+    kL = tree.keys[L]
+    xy = cell_coords(kL, dim)[:, None, :] + _offsets_on(dim, k, kL.device)
+    key = _clipped_ids(xy, L, dim, xy.shape[:-1])
+    row = torch.searchsorted(kL, key).clamp(max=kL.shape[0] - 1)
+    hit = (kL[row] == key) & _in_bounds(xy, L)
+    return torch.where(hit, row, torch.full_like(row, -1))
+
+
+def occupied_ring_pairs(tree: OccupiedTree, table: torch.Tensor
+                        ) -> torch.Tensor:
+    """The near field's (target, source) body pairs over ``table``'s rings
+    (each leaf's bodies times the bodies of its ring's leaves, itself
+    included), a 0-dim int64 tensor on the device, no read-back."""
+    ring = torch.where(table >= 0, tree.leaf_count[table.clamp(min=0)], 0)
+    return (tree.leaf_count * ring.sum(1)).sum()

@@ -42,7 +42,7 @@ NVCC_FLAGS = (
 #: caller reset them).
 LAUNCHES = {"precise": 0, "symmetric": 0, "sym_tile": 0, "fused_steps": 0,
             "mxu": 0, "near_field": 0, "p2p_leaf": 0, "rate_probe": 0,
-            "matmul_probe": 0}
+            "matmul_probe": 0, "near_field_occupied": 0}
 
 _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -64,6 +64,10 @@ _SIGNATURES = {
     "nbody_near_field": ((_c_void_p, _c_void_p, _c_void_p, _c_void_p, _c_int,
                           _c_int, _c_int, _c_int, _c_int, _c_float,
                           _c_void_p), _c_int),
+    "nbody_near_field_occupied": ((_c_void_p, _c_void_p, _c_void_p,
+                                   _c_void_p, _c_void_p, _c_void_p, _c_int,
+                                   _c_int, _c_int, ctypes.c_longlong,
+                                   _c_float, _c_void_p), _c_int),
     "nbody_p2p_leaf": ((_c_void_p, _c_void_p, _c_void_p, _c_int, _c_int,
                         _c_int, _c_int, _c_float, _c_void_p), _c_int),
     "nbody_rate_probe": ((_c_void_p, _c_int, _c_int, _c_int, _c_float,

@@ -133,7 +133,7 @@ _SPANS_ON = False
 # recording, and of those opened under one.
 _SPAN_TOTALS: Dict[str, list] = {}
 _PROFILED: Dict[str, list] = {}
-_COUNTERS: Dict[str, int] = {}
+_COUNTERS: Dict[str, object] = {}  # int, or a device tensor
 # CUDA spans not yet resolved: (name, profiled, start event, end event).
 _PENDING: list = []
 _OFF = contextlib.nullcontext()
@@ -223,8 +223,10 @@ def spanned(name: str, fn: Callable, device=None) -> Callable:
     return call
 
 
-def count(name: str, k: int = 1) -> None:
-    """Add ``k`` to the counter ``name`` (nothing while spans are off)."""
+def count(name: str, k=1) -> None:
+    """Add ``k`` to the counter ``name`` (nothing while spans are off).
+    ``k`` may be an integer tensor on the device: it is added there, with
+    no read-back, and read when :func:`counter_totals` is."""
     if _SPANS_ON:
         _COUNTERS[name] = _COUNTERS.get(name, 0) + k
 
@@ -249,4 +251,6 @@ def span_totals(outside_profiler: bool = False
 
 
 def counter_totals() -> Dict[str, int]:
-    return dict(_COUNTERS)
+    """name -> total of every counter so far (a wait for the device where
+    a counter was added there)."""
+    return {name: int(k) for name, k in _COUNTERS.items()}

@@ -381,33 +381,43 @@ def test_fp32_far_field_matches_f64_far_field(dim, order, n, level):
     assert float((far32.double() - far64).norm(dim=-1).max()) / rms < 3e-7
 
 
-@pytest.mark.parametrize("layout", ["dense", "sparse"])
+@pytest.mark.parametrize("layout", ["dense", "sparse", "adaptive"])
 def test_simulation_fmm_fp32_within_1e4_of_direct_sum(layout):
     """Simulation("fmm") on fp32 bodies, one leapfrog step, its forces
     against the f64 direct sum at the stepped positions: within 1e-4, the
     deployment's bound. Uniform 2D bodies in reference units take the
     dense layout (leaf level 3); 60% of 3000 3D bodies in one small ball
-    trip the dense guard, so the sparse layout serves them."""
+    trip the dense guard: the sparse layout, asked for by name (its
+    ``fmm_forces`` in the simulation's place), serves them at leaf level
+    2. The occupied-cell layout, which ``layout="auto"`` takes there, is
+    held on 60% of 6000 2D bodies in the ball, where the guard trips too
+    (the 3D ball takes it to the keys' last level, over a minute on the
+    CPU at order 8)."""
     if layout == "dense":
         pos, mass = _bodies(4096, 2, seed=50, dtype=np.float32)
         cfg = TGravity()
     else:
-        pos, mass = (a.astype(np.float32) for a in _clustered(3000, 3,
-                                                                seed=51))
+        pos, mass = (a.astype(np.float32) for a in (
+            _clustered(3000, 3, seed=51) if layout == "sparse"
+            else _clustered(6000, 2, seed=51)))
         cfg = TGravity(G=1.0, softening=1e-4)
     n, dim = pos.shape
     probes = []
-    real = ts.sparse_grid_stats
+    probed = "build_occupied_tree" if layout == "adaptive" \
+        else "sparse_grid_stats"
+    real = getattr(ts, probed)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(ts, "sparse_grid_stats",
-                   lambda *a: probes.append(a) or real(*a))
+        mp.setattr(ts, probed, lambda *a: probes.append(a) or real(*a))
         sim = Simulation.create(
             system_from_numpy(pos, np.zeros_like(pos), mass, device="cpu",
-                              dtype=torch.float32), cfg, method="fmm")\
-            .run(steps=1, dt=1e-2)
+                              dtype=torch.float32), cfg, method="fmm")
+        if layout == "sparse":
+            sim = dataclasses.replace(sim, forces_fn=functools.partial(
+                TF.fmm_forces, config=cfg, order=8, layout="sparse"))
+        sim = sim.run(steps=1, dt=1e-2)
         got = sim.forces()
     assert got.dtype == torch.float32
-    assert bool(probes) == (layout == "sparse")
+    assert bool(probes) == (layout != "dense")
     x1 = sim.system.positions.double().numpy()
     want = _direct(x1, mass.astype(np.float64), cfg)
     assert _err(got, want) < 1e-4
@@ -483,14 +493,16 @@ def test_fmm_sparse_matches_dense_uniform(dim):
 def test_fmm_auto_layout_on_a_degenerate_input(monkeypatch):
     """60% of the bodies in one small cell (the JAX package's own example
     of a degenerate dense layout, grid_tree.py:226-230): "auto" takes the
-    sparse layout, as the JAX package's does."""
+    sparse layout there, the port's its occupied-cell layout at the same
+    leaf level (a departure: the same expansions on the same cells, so the
+    same forces to the order of the sums)."""
     pos, mass = _bodies(4000, 2, seed=1)
     pos[:2400] = 5e6 + np.random.default_rng(2).uniform(0, 1, (2400, 2))
     cap = tg.compute_capacity(torch.from_numpy(pos), 4)
     assert tg.dense_layout_degenerate(cap, 4000, 4, 2)
     probes = []
-    real = ts.sparse_grid_stats
-    monkeypatch.setattr(ts, "sparse_grid_stats",
+    real = ts.build_occupied_tree
+    monkeypatch.setattr(ts, "build_occupied_tree",
                         lambda *a: probes.append(a) or real(*a))
     want = JF.fmm_forces(jnp.asarray(pos), jnp.asarray(mass), JGravity(),
                          order=4, leaf_level=4)
@@ -506,7 +518,19 @@ def test_fmm_sparse_clustered_vs_direct():
     pos, mass = _clustered(3000, 3, seed=7)
     cfg = TGravity(G=1.0, softening=1e-4)
     got = TF.fmm_forces(torch.from_numpy(pos), torch.from_numpy(mass), cfg,
-                        order=5, layout="auto")
+                        order=5, layout="sparse")
+    assert bool(torch.isfinite(got).all())
+    assert _err(got, _direct(pos, mass, cfg)) < 2e-3
+
+
+def test_fmm_adaptive_clustered_vs_direct():
+    """The occupied-cell layout on the same input class, 2D (the 3D ball
+    takes it to the keys' last level, slow on the CPU), against the direct
+    sum at the same bound."""
+    pos, mass = _clustered(3000, 2, seed=7)
+    cfg = TGravity(G=1.0, softening=1e-4)
+    got = TF.fmm_forces(torch.from_numpy(pos), torch.from_numpy(mass), cfg,
+                        order=5, layout="adaptive")
     assert bool(torch.isfinite(got).all())
     assert _err(got, _direct(pos, mass, cfg)) < 2e-3
 

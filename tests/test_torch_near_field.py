@@ -312,6 +312,8 @@ def test_auto_on_an_f64_tree_is_the_f64_plain_near_field(cuda_device):
 
 @pytest.mark.parametrize("name,source", [("nbody_near_field", "p2p_leaf.cu"),
                                          ("nbody_p2p_leaf", "p2p_leaf.cu"),
+                                         ("nbody_near_field_occupied",
+                                          "p2p_leaf.cu"),
                                          ("nbody_matmul_probe",
                                           "rate_probe.cu"),
                                          ("nbody_rate_probe", "rate_probe.cu"),

@@ -174,22 +174,29 @@ FMM_SPANS = {"fmm.build", "fmm.upward", "fmm.m2l", "fmm.downward",
              "fmm.p2p"}
 
 
-@pytest.mark.parametrize("layout", ["dense", "sparse"])
+@pytest.mark.parametrize("layout", ["dense", "sparse", "adaptive"])
 def test_fmm_spans_and_reads(spans, layout):
     """Each FMM phase's span once a call (``fmm.downward`` twice: L2L,
     then L2P), the counter ``fmm.reads`` at the call's host read-backs
     (the capacity scan; on the sparse layout the grid's sizes and each
-    chunk batch's window table), the counter ``fmm.m2l_products`` at
-    M2L's products (the 64 cells of leaf level 2, each with its parity
-    class's 189 offsets), and the same bits with spans on and off."""
+    chunk batch's window table; on the occupied-cell layout its depth
+    probe and, on the CPU, its plain near field's longest ring), the
+    counter ``fmm.m2l_products`` at M2L's products (the 64 cells of leaf
+    level 2, each with its parity class's 189 offsets; on the occupied
+    cells each class's rows, pad rows included), on the occupied cells
+    ``fmm.m2l_pairs`` and ``fmm.near_pairs`` (summed on the device), and
+    the same bits with spans on and off. The sparse layout is asked for
+    by name; ``layout="auto"`` takes the occupied cells on the clustered
+    input."""
     from nbody_tpu_torch.ops import fmm, sparse_grid
-    pos, mass = _clustered(3000, 0.6 if layout == "sparse" else 0.0,
+    pos, mass = _clustered(3000, 0.0 if layout == "dense" else 0.6,
                            seed=4)
     pos, mass = pos.float(), mass.float()
-    off = fmm.fmm_forces(pos, mass, UNIT, order=4)
+    kw = dict(order=4, layout="sparse" if layout == "sparse" else "auto")
+    off = fmm.fmm_forces(pos, mass, UNIT, **kw)
     assert spans.span_totals() == {} and spans.counter_totals() == {}
     spans.enable_spans()
-    on = fmm.fmm_forces(pos, mass, UNIT, order=4)
+    on = fmm.fmm_forces(pos, mass, UNIT, **kw)
     assert torch.equal(on, off)
     totals = spans.span_totals()
     assert set(totals) == FMM_SPANS
@@ -197,10 +204,24 @@ def test_fmm_spans_and_reads(spans, layout):
         "fmm.build": 1, "fmm.upward": 1, "fmm.m2l": 1, "fmm.downward": 2,
         "fmm.p2p": 1}
     assert all(t >= 0 for t, _ in totals.values())
-    reads = 1
+    if layout == "adaptive":
+        counters = spans.counter_totals()
+        tree = sparse_grid.build_occupied_tree(pos, mass, None,
+                                               UNIT.softening)
+        L = tree.leaf_level
+        ops = fmm._m2l_operators(tree, 4, 1)
+        assert counters == {
+            "fmm.reads": 3, "fmm.occupied_cells": sum(tree.cells[2:]),
+            "fmm.m2l_products": sum(8 * tree.class_rows[l] * 189
+                                    for l in range(2, L + 1)),
+            "fmm.m2l_pairs": int(fmm._m2l_pairs(tree, ops[0])),
+            "fmm.near_pairs": int(sparse_grid.occupied_ring_pairs(
+                tree, sparse_grid.occupied_ring_table(tree, 1)))}
+        return
+    reads = 1  # the capacity scan, or the sparse grid's sizes
     if layout == "sparse":
         num_chunks, _ = sparse_grid.sparse_grid_stats(pos, 2, 64, 8, 1)
-        reads += 1 + -(-num_chunks // min(1024, 128, num_chunks))
+        reads += -(-num_chunks // min(1024, 128, num_chunks))
     assert spans.counter_totals() == {"fmm.reads": reads,
                                       "fmm.m2l_products": 64 * 189}
 
